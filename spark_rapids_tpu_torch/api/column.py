@@ -1,0 +1,65 @@
+"""Column wrapper: the operator-overloaded expression builder (pyspark
+``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
+operators."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..ops import arithmetic as ar
+from ..ops import expressions as ex
+from ..ops import predicates as pr
+from ..plan import logical as lp
+
+
+def _unwrap(v: Any) -> ex.Expression:
+    if isinstance(v, Col):
+        return v.expr
+    if isinstance(v, ex.Expression):
+        return v
+    return ex.Literal(v)
+
+
+class Col:
+    def __init__(self, expr: ex.Expression):
+        self.expr = expr
+
+    # arithmetic
+    def __add__(self, o): return Col(ar.Add(self.expr, _unwrap(o)))
+    def __radd__(self, o): return Col(ar.Add(_unwrap(o), self.expr))
+    def __sub__(self, o): return Col(ar.Subtract(self.expr, _unwrap(o)))
+    def __rsub__(self, o): return Col(ar.Subtract(_unwrap(o), self.expr))
+    def __mul__(self, o): return Col(ar.Multiply(self.expr, _unwrap(o)))
+    def __rmul__(self, o): return Col(ar.Multiply(_unwrap(o), self.expr))
+    def __truediv__(self, o): return Col(ar.Divide(self.expr, _unwrap(o)))
+    def __rtruediv__(self, o): return Col(ar.Divide(_unwrap(o), self.expr))
+
+    # comparisons
+    def __eq__(self, o): return Col(pr.EqualTo(self.expr, _unwrap(o)))  # type: ignore[override]
+    def __ne__(self, o): return Col(pr.NotEqual(self.expr, _unwrap(o)))  # type: ignore[override]
+    def __lt__(self, o): return Col(pr.LessThan(self.expr, _unwrap(o)))
+    def __le__(self, o): return Col(pr.LessThanOrEqual(self.expr, _unwrap(o)))
+    def __gt__(self, o): return Col(pr.GreaterThan(self.expr, _unwrap(o)))
+    def __ge__(self, o): return Col(pr.GreaterThanOrEqual(self.expr, _unwrap(o)))
+
+    # boolean
+    def __and__(self, o): return Col(pr.And(self.expr, _unwrap(o)))
+    def __or__(self, o): return Col(pr.Or(self.expr, _unwrap(o)))
+    def __invert__(self): return Col(pr.Not(self.expr))
+
+    def isNull(self): return Col(pr.IsNull(self.expr))
+    def isNotNull(self): return Col(pr.IsNotNull(self.expr))
+
+    def alias(self, name: str) -> "Col":
+        return Col(ex.Alias(self.expr, name))
+
+    def asc(self) -> lp.SortOrder:
+        return lp.SortOrder(self.expr, ascending=True)
+
+    def desc(self) -> lp.SortOrder:
+        return lp.SortOrder(self.expr, ascending=False)
+
+    def __repr__(self):
+        return f"Col({self.expr!r})"
+
+    __hash__ = None  # type: ignore[assignment]

@@ -1,0 +1,106 @@
+"""DataFrame API (the pyspark surface over the logical plan builder), ported
+from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
+select, withColumn, groupBy().agg, agg, orderBy, limit, collect and
+collect_batch."""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, List, Optional, Union
+
+from ..columnar import dtypes as dt
+from ..columnar.batch import ColumnarBatch
+from ..ops import expressions as ex
+from ..plan import logical as lp
+from .column import Col, _unwrap
+
+ColumnOrName = Union[Col, str]
+
+
+def _to_expr(c: ColumnOrName) -> ex.Expression:
+    if isinstance(c, str):
+        return ex.ColumnRef(c)
+    return _unwrap(c)
+
+
+class DataFrame:
+    def __init__(self, plan: lp.LogicalPlan, session):
+        self._plan = plan
+        self.session = session
+
+    @property
+    def schema(self) -> dt.Schema:
+        return self._analyzed().schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names()
+
+    def _analyzed(self) -> lp.LogicalPlan:
+        return lp.analyze(copy.deepcopy(self._plan))
+
+    def _df(self, plan: lp.LogicalPlan) -> "DataFrame":
+        return DataFrame(plan, self.session)
+
+    # -- transformations -------------------------------------------------
+    def select(self, *cols: ColumnOrName) -> "DataFrame":
+        if not cols:
+            cols = tuple(self.columns)
+        return self._df(lp.Project(self._plan, [_to_expr(c) for c in cols]))
+
+    def filter(self, condition: Col) -> "DataFrame":
+        return self._df(lp.Filter(self._plan, _unwrap(condition)))
+
+    def withColumn(self, name: str, col: Col) -> "DataFrame":
+        exprs: List[ex.Expression] = []
+        replaced = False
+        for c in self.columns:
+            if c == name:
+                exprs.append(ex.Alias(_unwrap(col), name))
+                replaced = True
+            else:
+                exprs.append(ex.ColumnRef(c))
+        if not replaced:
+            exprs.append(ex.Alias(_unwrap(col), name))
+        return self._df(lp.Project(self._plan, exprs))
+
+    def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
+        return GroupedData(self, [_to_expr(c) for c in cols])
+
+    def agg(self, *aggs: Col) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs)
+
+    def orderBy(self, *cols, ascending: Optional[Any] = None) -> "DataFrame":
+        orders = []
+        for i, c in enumerate(cols):
+            if isinstance(c, lp.SortOrder):
+                orders.append(c)
+                continue
+            asc = True
+            if ascending is not None:
+                asc = ascending[i] if isinstance(ascending, (list, tuple)) \
+                    else bool(ascending)
+            orders.append(lp.SortOrder(_to_expr(c), asc))
+        return self._df(lp.Sort(self._plan, orders))
+
+    def limit(self, n: int) -> "DataFrame":
+        return self._df(lp.Limit(self._plan, n))
+
+    # -- actions ---------------------------------------------------------
+    def collect_batch(self) -> ColumnarBatch:
+        """Run the query; the result stays on the session's device."""
+        return self.session._run(self._analyzed())
+
+    def collect(self) -> List[tuple]:
+        return self.collect_batch().rows()
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, grouping: List[ex.Expression]):
+        self.df = df
+        self.grouping = grouping
+
+    def agg(self, *aggs: Col) -> DataFrame:
+        agg_exprs = [_unwrap(a) for a in aggs]
+        out: List[ex.Expression] = list(self.grouping) + agg_exprs
+        return self.df._df(lp.Aggregate(self.df._plan, self.grouping, out))

@@ -1,0 +1,53 @@
+"""pyspark.sql.functions analog: the expression constructors of the main
+path, ported from spark_rapids_tpu/api/functions.py."""
+
+from __future__ import annotations
+
+from typing import Any
+
+from ..ops import expressions as ex
+from ..plan import logical as lp
+from .column import Col, _unwrap
+
+
+def col(name: str) -> Col:
+    return Col(ex.ColumnRef(name))
+
+
+def lit(value: Any) -> Col:
+    return Col(ex.Literal(value))
+
+
+def _agg(op: str, c, **kw) -> Col:
+    child = None if c is None else _unwrap(col(c) if isinstance(c, str) else c)
+    return Col(lp.AggregateExpression(op, child, **kw))
+
+
+def count(c="*") -> Col:
+    if isinstance(c, str) and c == "*":
+        return Col(lp.AggregateExpression("count_star", None))
+    return _agg("count", c)
+
+
+def sum(c) -> Col:  # noqa: A001 - pyspark parity
+    return _agg("sum", c)
+
+
+def avg(c) -> Col:
+    return _agg("avg", c)
+
+
+def min(c) -> Col:  # noqa: A001
+    return _agg("min", c)
+
+
+def max(c) -> Col:  # noqa: A001
+    return _agg("max", c)
+
+
+def first(c, ignorenulls: bool = False) -> Col:
+    return _agg("first", c, ignore_nulls=ignorenulls)
+
+
+def last(c, ignorenulls: bool = False) -> Col:
+    return _agg("last", c, ignore_nulls=ignorenulls)

@@ -1,0 +1,325 @@
+"""Logical plan: the port of spark_rapids_tpu/plan/logical.py (scan, project,
+filter, aggregate, sort, limit) with its analysis: name resolution and the
+numeric/date coercions that insert implicit casts.
+
+The scan's data is a :class:`HostTable` of numpy columns; the port needs no
+pyarrow on the main path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..columnar import dtypes as dt
+from ..columnar.column import Column
+from ..ops import arithmetic as ar
+from ..ops import expressions as ex
+from ..ops import predicates as pr
+from ..ops.cast import Cast
+
+
+class HostTable:
+    """An immutable in-memory table: one numpy array per column, plus
+    optional validity arrays (True = valid), in schema order.
+
+    ``select`` returns a column-pruned view that shares the arrays and
+    keeps ``base`` pointing at the original table: the scan's device cache
+    is keyed by the base table and the kept names."""
+
+    def __init__(self, columns: Dict[str, np.ndarray], schema: dt.Schema,
+                 validity: Optional[Dict[str, np.ndarray]] = None,
+                 base: Optional["HostTable"] = None):
+        self.columns = columns
+        self.schema = schema
+        self.validity = validity or {}
+        self.base = base if base is not None else self
+        lens = {len(v) for v in columns.values()}
+        if len(lens) > 1:
+            raise ValueError(f"columns of different lengths: {lens}")
+        self.num_rows = lens.pop() if lens else 0
+
+    def select(self, names: Sequence[str]) -> "HostTable":
+        schema = dt.Schema([self.schema[n] for n in names])
+        return HostTable({n: self.columns[n] for n in names}, schema,
+                         {n: v for n, v in self.validity.items()
+                          if n in names}, base=self.base)
+
+    def host_arrays(self, lo: int, rows: int, capacity: int):
+        """Padded host arrays of rows [lo, lo + rows) for every column."""
+        out = []
+        for f in self.schema:
+            v = self.validity.get(f.name)
+            out.append(Column.host_arrays(
+                self.columns[f.name][lo:lo + rows], f.dtype,
+                None if v is None else v[lo:lo + rows], capacity))
+        return out
+
+
+class SortOrder:
+    def __init__(self, child: ex.Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.child = child
+        self.ascending = ascending
+        # Spark default: NULLS FIRST for asc, NULLS LAST for desc
+        self.nulls_first = ascending if nulls_first is None else nulls_first
+
+    def __repr__(self):
+        return (f"{self.child!r} {'ASC' if self.ascending else 'DESC'} "
+                f"NULLS {'FIRST' if self.nulls_first else 'LAST'}")
+
+
+class AggregateExpression(ex.Expression):
+    """Marks an aggregate call inside an Aggregate node's output list."""
+
+    AGG_OPS = ("count", "count_star", "sum", "min", "max", "avg", "first",
+               "last")
+
+    def __init__(self, op: str, child: Optional[ex.Expression],
+                 ignore_nulls: bool = True, distinct: bool = False):
+        super().__init__(*([child] if child is not None else []))
+        if op not in self.AGG_OPS:
+            raise ValueError(f"unknown aggregate {op!r}")
+        self.op = op
+        self.ignore_nulls = ignore_nulls
+        self.distinct = distinct
+
+    @property
+    def dtype(self) -> dt.DType:
+        from ..ops.aggregates import result_dtype
+        child_t = self.children[0].dtype if self.children else None
+        return result_dtype(self.op, child_t)
+
+    @property
+    def nullable(self) -> bool:
+        return self.op not in ("count", "count_star")
+
+    def eval(self, batch):
+        raise RuntimeError("AggregateExpression is planned, not evaluated")
+
+    def __repr__(self):
+        arg = repr(self.children[0]) if self.children else "*"
+        return f"{self.op}({'DISTINCT ' if self.distinct else ''}{arg})"
+
+
+# ---------------------------------------------------------------------------
+# Plan nodes
+# ---------------------------------------------------------------------------
+
+class LogicalPlan:
+    def __init__(self, *children: "LogicalPlan"):
+        self.children: List[LogicalPlan] = list(children)
+        self._schema: Optional[dt.Schema] = None
+
+    @property
+    def schema(self) -> dt.Schema:
+        if self._schema is None:
+            self._schema = self._compute_schema()
+        return self._schema
+
+    def _compute_schema(self) -> dt.Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def expressions(self) -> List[ex.Expression]:
+        return []
+
+    def __repr__(self):
+        return self._tree_string(0)
+
+    def _node_string(self) -> str:
+        return self.name
+
+    def _tree_string(self, depth: int) -> str:
+        out = "  " * depth + self._node_string()
+        for c in self.children:
+            out += "\n" + c._tree_string(depth + 1)
+        return out
+
+
+class LocalScan(LogicalPlan):
+    """In-memory table scan. The table is shared, never copied, when plans
+    are copied for analysis."""
+
+    def __init__(self, data: HostTable):
+        super().__init__()
+        self.data = data
+
+    def __deepcopy__(self, memo):
+        c = LocalScan(self.data)
+        memo[id(self)] = c
+        return c
+
+    def _compute_schema(self) -> dt.Schema:
+        return self.data.schema
+
+    def _node_string(self):
+        return f"LocalScan [{', '.join(self.schema.names())}]"
+
+
+class Project(LogicalPlan):
+    def __init__(self, child: LogicalPlan, exprs: List[ex.Expression]):
+        super().__init__(child)
+        self.exprs = exprs
+
+    def expressions(self):
+        return self.exprs
+
+    def _compute_schema(self) -> dt.Schema:
+        return dt.Schema([dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
+                          for i, e in enumerate(self.exprs)])
+
+
+class Filter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, condition: ex.Expression):
+        super().__init__(child)
+        self.condition = condition
+
+    def expressions(self):
+        return [self.condition]
+
+    def _compute_schema(self) -> dt.Schema:
+        return self.children[0].schema
+
+
+class Aggregate(LogicalPlan):
+    """Group-by aggregate; aggregate calls appear as AggregateExpression
+    subtrees of ``aggregate_exprs``."""
+
+    def __init__(self, child: LogicalPlan, grouping: List[ex.Expression],
+                 aggregate_exprs: List[ex.Expression]):
+        super().__init__(child)
+        self.grouping = grouping
+        self.aggregate_exprs = aggregate_exprs
+
+    def expressions(self):
+        return self.grouping + self.aggregate_exprs
+
+    def _compute_schema(self) -> dt.Schema:
+        return dt.Schema([dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
+                          for i, e in enumerate(self.aggregate_exprs)])
+
+
+class Sort(LogicalPlan):
+    """Global sort."""
+
+    def __init__(self, child: LogicalPlan, orders: List[SortOrder]):
+        super().__init__(child)
+        self.orders = orders
+
+    def expressions(self):
+        return [o.child for o in self.orders]
+
+    def _compute_schema(self) -> dt.Schema:
+        return self.children[0].schema
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, n: int):
+        super().__init__(child)
+        self.n = n
+
+    def _compute_schema(self) -> dt.Schema:
+        return self.children[0].schema
+
+
+# ---------------------------------------------------------------------------
+# Analysis
+# ---------------------------------------------------------------------------
+
+class AnalysisError(Exception):
+    pass
+
+
+def _resolve_expr(e: ex.Expression, schema: dt.Schema) -> ex.Expression:
+    def fn(node):
+        if isinstance(node, ex.ColumnRef):
+            if node.col_name not in schema:
+                raise AnalysisError(
+                    f"cannot resolve column {node.col_name!r}; "
+                    f"available: {schema.names()}")
+            return node.resolve(schema)
+        return None
+    return e.transform(fn)
+
+
+def _coerce(e: ex.Expression) -> ex.Expression:
+    """Insert implicit casts for numeric binary ops and comparisons."""
+
+    def fn(node):
+        if isinstance(node, (ar.BinaryArithmetic, pr.BinaryComparison)):
+            l, r = node.children
+            lt, rt = l.dtype, r.dtype
+            if lt == rt:
+                if isinstance(node, ar.Divide) and lt.is_integral:
+                    return node.with_children([Cast(l, dt.FLOAT64),
+                                               Cast(r, dt.FLOAT64)])
+                return None
+            if lt == dt.NULLTYPE:
+                return node.with_children([Cast(l, rt), r])
+            if rt == dt.NULLTYPE:
+                return node.with_children([l, Cast(r, lt)])
+            if lt.is_numeric and rt.is_numeric or \
+                    {lt, rt} <= {dt.BOOL, *dt.NUMERIC_TYPES}:
+                target = dt.promote(lt if lt != dt.BOOL else dt.INT8,
+                                    rt if rt != dt.BOOL else dt.INT8)
+                if isinstance(node, ar.Divide):
+                    target = dt.FLOAT64
+                nl = l if lt == target else Cast(l, target)
+                nr = r if rt == target else Cast(r, target)
+                return node.with_children([nl, nr])
+            if (lt in (dt.DATE, dt.TIMESTAMP) and rt.is_integral) or \
+                    (rt in (dt.DATE, dt.TIMESTAMP) and lt.is_integral):
+                # int literal vs date/timestamp: reinterpret the int side
+                target = lt if lt in (dt.DATE, dt.TIMESTAMP) else rt
+                nl = l if lt == target else Cast(l, target)
+                nr = r if rt == target else Cast(r, target)
+                return node.with_children([nl, nr])
+            raise AnalysisError(f"cannot coerce {lt} vs {rt} in {node!r}")
+        if isinstance(node, AggregateExpression) and node.children:
+            c = node.children[0]
+            if node.op in ("sum", "avg") and c.dtype == dt.BOOL:
+                return node.with_children([Cast(c, dt.INT32)])
+        return None
+
+    return e.transform(fn)
+
+
+def analyze(plan: LogicalPlan) -> LogicalPlan:
+    """Bottom-up resolve and coerce, in place."""
+    for c in plan.children:
+        analyze(c)
+    child_schema = plan.children[0].schema if plan.children else None
+
+    def ra(e):
+        e = _resolve_expr(e, child_schema) if child_schema else e
+        return _coerce(e)
+
+    if isinstance(plan, Project):
+        plan.exprs = [ra(e) for e in plan.exprs]
+    elif isinstance(plan, Filter):
+        plan.condition = ra(plan.condition)
+        if plan.condition.dtype != dt.BOOL:
+            raise AnalysisError(
+                f"filter condition must be boolean, got "
+                f"{plan.condition.dtype}")
+    elif isinstance(plan, Aggregate):
+        # computed grouping keys are matched BY IDENTITY in the result
+        # projection: an output subtree that is a grouping member must
+        # resolve to the same object the grouping list resolves to
+        old_grouping = list(plan.grouping)
+        plan.grouping = [ra(e) for e in plan.grouping]
+        ident = {id(o): n for o, n in zip(old_grouping, plan.grouping)}
+        plan.aggregate_exprs = [
+            ra(e.transform_down(lambda n: ident.get(id(n))))
+            for e in plan.aggregate_exprs]
+    elif isinstance(plan, Sort):
+        plan.orders = [SortOrder(ra(o.child), o.ascending, o.nulls_first)
+                       for o in plan.orders]
+    plan._schema = None
+    return plan
+

@@ -1,0 +1,111 @@
+"""Planner: the port of the main-path rules of spark_rapids_tpu/plan/overrides.py.
+
+Converts an analyzed logical plan into execs: scan, filter, project,
+aggregate (single partition, with the filter/project chain below it folded
+in), sort and limit, then inserts the batch-coalescing transitions. The
+port has no CPU engine yet, so anything else raises NotImplementedError
+naming the operator: nothing runs on the host in its place.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+from .. import config as cfg
+from ..ops import expressions as ex
+from . import logical as lp
+from . import physical as ph
+from . import stage_compiler as sc
+
+
+class Overrides:
+    def __init__(self, conf: cfg.TorchConf, device,
+                 scan_cache: Optional[ph.ScanCache] = None):
+        self.conf = conf
+        self.device = device
+        self.scan_cache = scan_cache
+
+    @property
+    def batch_rows(self) -> int:
+        return int(self.conf.get(cfg.BATCH_ROWS))
+
+    def apply(self, plan: lp.LogicalPlan) -> ph.TpuExec:
+        plan = _prune_scan_columns(plan)
+        node = self._convert(plan)
+        return self._insert_coalesce(node)
+
+    def _convert(self, p: lp.LogicalPlan) -> ph.TpuExec:
+        kids = [self._convert(c) for c in p.children]
+        if isinstance(p, lp.LocalScan):
+            return ph.TpuLocalScanExec(p.data, p.schema, self.device,
+                                       batch_rows=self.batch_rows,
+                                       cache=self.scan_cache)
+        if isinstance(p, lp.Project):
+            return ph.TpuProjectExec(kids[0], p.exprs)
+        if isinstance(p, lp.Filter):
+            return ph.TpuFilterExec(kids[0], p.condition)
+        if isinstance(p, lp.Aggregate):
+            return self._make_aggregate(p, kids[0])
+        if isinstance(p, lp.Sort):
+            return ph.TpuSortExec(kids[0], p.orders)
+        if isinstance(p, lp.Limit):
+            return ph.TpuLimitExec(kids[0], p.n)
+        raise NotImplementedError(
+            f"{p.name} is not ported to the PyTorch engine yet")
+
+    def _make_aggregate(self, p: lp.Aggregate,
+                        child: ph.TpuExec) -> ph.TpuExec:
+        leaves = [l for e in p.aggregate_exprs for l in e.collect(
+            lambda x: isinstance(x, lp.AggregateExpression))]
+        if any(l.distinct for l in leaves):
+            raise NotImplementedError(
+                "DISTINCT aggregates are not ported to the PyTorch engine "
+                "yet")
+        child, pre_stage = sc.peel_for_aggregate(child)
+        return ph.TpuHashAggregateExec(child, p.grouping, p.aggregate_exprs,
+                                       pre_stage=pre_stage)
+
+    def _insert_coalesce(self, node: ph.TpuExec) -> ph.TpuExec:
+        for i, child in enumerate(node.children):
+            child = self._insert_coalesce(child)
+            goal = node.children_coalesce_goal(i)
+            if goal is not None and not isinstance(
+                    child, ph.TpuCoalesceBatchesExec):
+                child = ph.TpuCoalesceBatchesExec(
+                    child, goal=goal, target_rows=self.batch_rows)
+            node.children[i] = child
+        return node
+
+
+def _walk(p: lp.LogicalPlan):
+    yield p
+    for c in p.children:
+        yield from _walk(c)
+
+
+def _prune_scan_columns(root: lp.LogicalPlan) -> lp.LogicalPlan:
+    """Keep at the scans only the columns some expression references, plus
+    the root's output (by name, as the reference does)."""
+    referenced = set(root.schema.names())
+    for p in _walk(root):
+        for e in p.expressions():
+            for n in e.collect(lambda x: isinstance(x, ex.ColumnRef)):
+                referenced.add(n.col_name)
+
+    def rewrite(p: lp.LogicalPlan) -> lp.LogicalPlan:
+        if isinstance(p, lp.LocalScan):
+            names = p.schema.names()
+            keep = [n for n in names if n in referenced] or names[:1]
+            if len(keep) < len(names):
+                return lp.LocalScan(p.data.select(keep))
+            return p
+        kids = [rewrite(c) for c in p.children]
+        if all(k is c for k, c in zip(kids, p.children)):
+            return p
+        out = copy.copy(p)
+        out.children = kids
+        out._schema = None
+        return out
+
+    return rewrite(root)

@@ -1,0 +1,562 @@
+"""Physical columnar operators: the port of the main-path execs of
+spark_rapids_tpu/plan/physical.py.
+
+An exec's ``execute()`` returns a list of partitions, each an iterator of
+:class:`ColumnarBatch`. This slice runs one partition. The aggregate is
+the reference's ``complete`` mode: an update per input batch (with the
+folded filter/project chain as a live mask), merges of pending partials in
+fan-in groups, then the final merge and result projection. Its two routes
+are the reference's: grouping-free input takes the reduce route (K1 per
+aggregate); grouped input takes the sort route (K2 + stable sort, K3, K4).
+Partials are plain device tensors. Failures propagate: nothing falls back
+to another engine or device.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Any, Dict, Iterator, List, Optional
+
+import torch
+
+from ..columnar import dtypes as dt
+from ..columnar.batch import ColumnarBatch, resolve_counts
+from ..columnar.column import Column, Scalar, bucket
+from ..ops import aggregates as agg_k
+from ..ops import expressions as ex
+from ..ops import kernels as K
+from . import logical as lp
+
+Partition = Iterator[ColumnarBatch]
+
+
+def bind_refs(e: ex.Expression, schema: dt.Schema) -> ex.Expression:
+    def fn(node):
+        if isinstance(node, ex.ColumnRef):
+            i = schema.index_of(node.col_name)
+            f = schema[i]
+            return ex.BoundReference(i, f.dtype, f.nullable, f.name)
+        return None
+    return e.transform(fn)
+
+
+def concat_batches(schema: dt.Schema, batches: List[ColumnarBatch],
+                   device) -> ColumnarBatch:
+    """One batch holding every row of ``batches`` (counts read in one
+    device -> host copy), capacity bucket(total)."""
+    resolve_counts(batches)
+    batches = [b for b in batches if b.num_rows > 0]
+    if not batches:
+        return ColumnarBatch.empty(schema, device)
+    if len(batches) == 1:
+        return batches[0]
+    counts = [b.num_rows for b in batches]
+    cap = bucket(sum(counts))
+    cols = [K.concat_columns([b.columns[i] for b in batches], counts, cap)
+            for i in range(len(schema))]
+    return ColumnarBatch(schema, cols, sum(counts))
+
+
+class TpuExec:
+    """Base physical operator."""
+
+    def __init__(self, *children: "TpuExec"):
+        self.children = list(children)
+
+    @property
+    def schema(self) -> dt.Schema:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        return self.children[0].device
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def children_coalesce_goal(self, i: int):
+        """None, "target" (concat small batches toward the batch size) or
+        "single" (the whole partition in one batch)."""
+        return None
+
+    def execute(self) -> List[Partition]:
+        raise NotImplementedError
+
+    def execute_collect(self) -> ColumnarBatch:
+        """Every partition's rows in one device batch."""
+        batches = [b for part in self.execute() for b in part]
+        return concat_batches(self.schema, batches, self.device)
+
+    def tree_string(self, depth: int = 0) -> str:
+        out = "  " * depth + self._node_string()
+        for c in self.children:
+            out += "\n" + c.tree_string(depth + 1)
+        return out
+
+    def _node_string(self) -> str:
+        return self.name
+
+    def __repr__(self):
+        return self.tree_string()
+
+
+class ScanCache:
+    """Device copies of scanned columns, reused across queries. An entry is
+    one column of one base table cut into ``batch_rows``-row batches, keyed
+    by (base table, column name, batch rows, device), so a column that
+    several queries read is on the device once. ``max_bytes`` caps the
+    total. Entries go when their base table is garbage collected.
+
+    ``uploads`` counts the column batches scans had to upload, ``refused``
+    the puts that did not fit: a scan served from the cache bumps
+    neither."""
+
+    def __init__(self, max_bytes: int = 6 << 30):
+        self.max_bytes = max_bytes
+        self.bytes = 0
+        self.uploads = 0
+        self.refused = 0
+        self._entries: Dict[tuple, List[Column]] = {}
+        self._watched: set = set()
+
+    def get(self, key: tuple) -> Optional[List[Column]]:
+        return self._entries.get(key)
+
+    def put_all(self, entries: Dict[tuple, List[Column]],
+                table: lp.HostTable) -> bool:
+        """Cache every entry or none. The columns of one scan share their
+        upload's device buffer, so caching only some of them would keep
+        the whole buffer alive while counting part of it."""
+        size = sum(c.device_size_bytes() for cols in entries.values()
+                   for c in cols)
+        if any(k in self._entries for k in entries) or \
+                self.bytes + size > self.max_bytes:
+            self.refused += 1
+            return False
+        self._entries.update(entries)
+        self.bytes += size
+        tid = id(table)
+        if tid not in self._watched:
+            self._watched.add(tid)
+            weakref.finalize(table, self._evict, tid)
+        return True
+
+    def _evict(self, tid: int) -> None:
+        self._watched.discard(tid)
+        for key in [k for k in self._entries if k[0] == tid]:
+            cols = self._entries.pop(key)
+            self.bytes -= sum(c.device_size_bytes() for c in cols)
+
+
+# ---------------------------------------------------------------------------
+# Leaves
+# ---------------------------------------------------------------------------
+
+class TpuLocalScanExec(TpuExec):
+    """In-memory table scan -> device batches of ``batch_rows`` rows. The
+    columns missing from ``cache`` go up in one pinned copy per batch and
+    are cached for later queries over the same table; cached columns are
+    reused as they are."""
+
+    def __init__(self, table: lp.HostTable, schema: dt.Schema, device,
+                 batch_rows: int = 1 << 20,
+                 cache: Optional[ScanCache] = None):
+        super().__init__()
+        self.table = table
+        self._schema = schema
+        self._device = torch.device(device)
+        self.batch_rows = batch_rows
+        self.cache = cache
+
+    @property
+    def schema(self):
+        return self._schema
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def execute(self) -> List[Partition]:
+        return [self._part()]
+
+    def _part(self) -> Partition:
+        names = self._schema.names()
+        keys = {n: (id(self.table.base), n, self.batch_rows,
+                    str(self._device)) for n in names}
+        cached = {n: self.cache.get(keys[n]) for n in names} \
+            if self.cache is not None else {}
+        missing = [n for n in names if cached.get(n) is None]
+        upload = self.table.select(missing)
+        made: Dict[str, List[Column]] = {n: [] for n in missing}
+        n_rows = self.table.num_rows
+        for i, lo in enumerate(range(0, n_rows, self.batch_rows)):
+            rows = min(self.batch_rows, n_rows - lo)
+            cols = {n: c[i] for n, c in cached.items() if c is not None}
+            if missing:
+                hosts = upload.host_arrays(lo, rows, bucket(rows))
+                up = ColumnarBatch.upload(upload.schema, hosts, rows,
+                                          self._device)
+                for n, c in zip(missing, up.columns):
+                    made[n].append(c)
+                    cols[n] = c
+                if self.cache is not None:
+                    self.cache.uploads += len(missing)
+            yield ColumnarBatch(self._schema, [cols[n] for n in names], rows)
+        if self.cache is not None and missing:
+            self.cache.put_all({keys[n]: made[n] for n in missing},
+                               self.table.base)
+
+    def _node_string(self):
+        return f"TpuLocalScanExec [{', '.join(self._schema.names())}]"
+
+
+# ---------------------------------------------------------------------------
+# Project / Filter / Coalesce
+# ---------------------------------------------------------------------------
+
+class TpuProjectExec(TpuExec):
+    def __init__(self, child: TpuExec, exprs: List[ex.Expression]):
+        super().__init__(child)
+        self.exprs = [bind_refs(e, child.schema) for e in exprs]
+        self._schema = dt.Schema([
+            dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
+            for i, e in enumerate(exprs)])
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self) -> List[Partition]:
+        return [self._map(p) for p in self.children[0].execute()]
+
+    def _map(self, part: Partition) -> Partition:
+        for batch in part:
+            cols = [ex.materialize(e.eval(batch), batch) for e in self.exprs]
+            yield ColumnarBatch(self._schema, cols, batch.num_rows_raw)
+
+
+class TpuFilterExec(TpuExec):
+    """Filter by compaction; the count stays on the device."""
+
+    def __init__(self, child: TpuExec, condition: ex.Expression):
+        super().__init__(child)
+        self.condition = bind_refs(condition, child.schema)
+        self._schema = child.schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self) -> List[Partition]:
+        return [self._map(p) for p in self.children[0].execute()]
+
+    def _map(self, part: Partition) -> Partition:
+        for batch in part:
+            pred = self.condition.eval(batch)
+            if isinstance(pred, Scalar):
+                if pred.value is True:
+                    yield batch
+                continue
+            keep = pred.data & pred.validity & batch.row_mask_raw()
+            cols, count = K.compact_columns(batch.columns, keep)
+            yield ColumnarBatch(self._schema, cols, count)
+
+
+class TpuCoalesceBatchesExec(TpuExec):
+    """Concatenate batches up to a goal: "single" (the whole partition) or
+    "target" (at least ``target_rows`` rows per output batch)."""
+
+    def __init__(self, child: TpuExec, goal: Any = "single",
+                 target_rows: int = 1 << 20):
+        super().__init__(child)
+        self.goal = goal
+        self.target_rows = target_rows
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self) -> List[Partition]:
+        return [self._map(p) for p in self.children[0].execute()]
+
+    def _map(self, part: Partition) -> Partition:
+        pending: List[ColumnarBatch] = []
+        rows = 0
+        for batch in part:
+            resolve_counts([batch])
+            if batch.num_rows == 0:
+                continue
+            pending.append(batch)
+            rows += batch.num_rows
+            if self.goal != "single" and rows >= self.target_rows:
+                yield concat_batches(self.schema, pending, self.device)
+                pending, rows = [], 0
+        if pending:
+            yield concat_batches(self.schema, pending, self.device)
+
+
+# ---------------------------------------------------------------------------
+# Aggregate
+# ---------------------------------------------------------------------------
+
+class TpuHashAggregateExec(TpuExec):
+    """Sort-based group-by aggregate in ``complete`` mode: this node sees
+    every row of its groups. ``pre_stage`` is the filter/project chain the
+    planner folded into it (stage_compiler.StageChain)."""
+
+    # pending partials merge in groups of this many (one merge per batch
+    # would run a merge aggregation per input batch)
+    MERGE_FAN_IN = 8
+
+    def __init__(self, child: TpuExec, grouping: List[ex.Expression],
+                 aggregate_exprs: List[ex.Expression], pre_stage=None):
+        super().__init__(child)
+        self.pre_stage = pre_stage
+        self.grouping_src = grouping
+        self.aggregate_exprs = aggregate_exprs
+        self.leaves: List[lp.AggregateExpression] = []
+        for e in aggregate_exprs:
+            self.leaves.extend(
+                e.collect(lambda x: isinstance(x, lp.AggregateExpression)))
+        in_schema = pre_stage.out_schema if pre_stage is not None \
+            else child.schema
+        self.grouping = [bind_refs(e, in_schema) for e in grouping]
+        self.bound_leaf_inputs = [
+            bind_refs(l.children[0], in_schema) if l.children else None
+            for l in self.leaves]
+        self._out_schema = dt.Schema([
+            dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
+            for i, e in enumerate(aggregate_exprs)])
+
+    def _partial_schema(self) -> dt.Schema:
+        """Keys, then the update columns of each leaf."""
+        fields = [dt.Field(f"_k{i}", g.dtype, True)
+                  for i, g in enumerate(self.grouping_src)]
+        for i, l in enumerate(self.leaves):
+            for j, (_op, t) in enumerate(self._update_cols(l)):
+                fields.append(dt.Field(f"_a{i}_{j}", t, True))
+        return dt.Schema(fields)
+
+    def _update_cols(self, leaf: lp.AggregateExpression):
+        """(op, dtype) of one leaf's update outputs (avg = sum + count)."""
+        t = leaf.children[0].dtype if leaf.children else None
+        if leaf.op == "avg":
+            return [("sum", dt.FLOAT64), ("count", dt.INT64)]
+        if leaf.op in ("count", "count_star"):
+            return [(leaf.op, dt.INT64)]
+        return [(leaf.op, agg_k.result_dtype(leaf.op, t))]
+
+    def _merge_ops(self, leaf: lp.AggregateExpression):
+        if leaf.op == "avg":
+            return ["sum", "sum"]
+        if leaf.op in ("count", "count_star"):
+            return ["sum"]
+        return [leaf.op]
+
+    @property
+    def schema(self):
+        return self._out_schema
+
+    def children_coalesce_goal(self, i: int):
+        return "target"
+
+    def execute(self) -> List[Partition]:
+        parts = self.children[0].execute()
+
+        def stream():
+            for p in parts:
+                yield from p
+        return [self._stream_merge(stream())]
+
+    def _stream_merge(self, batches) -> Partition:
+        pschema = self._partial_schema()
+        pending: List[ColumnarBatch] = []
+        for batch in batches:
+            pending.append(self._update(batch))
+            if len(pending) >= self.MERGE_FAN_IN:
+                pending = [self._merge(pending)]
+        if not pending:
+            final_in = ColumnarBatch.empty(pschema, self.device)
+        elif len(pending) == 1:
+            final_in = pending[0]
+        else:
+            final_in = self._merge(pending)
+        yield self._final(final_in)
+
+    # -- update (per input batch) -----------------------------------------
+    def _build_update_specs(self, batch: ColumnarBatch):
+        keys = [ex.materialize(g.eval(batch), batch) for g in self.grouping]
+        specs: List[agg_k.AggSpec] = []
+        for leaf, bound in zip(self.leaves, self.bound_leaf_inputs):
+            col = ex.materialize(bound.eval(batch), batch) \
+                if bound is not None else None
+            for op, _t in self._update_cols(leaf):
+                if leaf.op == "avg" and op == "sum" and \
+                        col.dtype != dt.FLOAT64:
+                    specs.append(agg_k.AggSpec(op, Column(
+                        dt.FLOAT64, col.data.to(torch.float64),
+                        col.validity)))
+                else:
+                    specs.append(agg_k.AggSpec(
+                        op, col, ignore_nulls=leaf.ignore_nulls))
+        return keys, specs
+
+    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+        mask = None
+        if self.pre_stage is not None:
+            batch, mask = self.pre_stage.eval(batch)
+        keys, specs = self._build_update_specs(batch)
+        return self._aggregate(keys, specs, batch, mask)
+
+    def _aggregate(self, keys, specs, batch: ColumnarBatch,
+                   mask: Optional[torch.Tensor]) -> ColumnarBatch:
+        pschema = self._partial_schema()
+        cap = batch.capacity
+        if not keys:
+            live = mask if mask is not None else batch.row_mask_raw()
+            aggs = agg_k.reduce_aggregate(specs, batch.num_rows_raw, cap,
+                                          live_mask=live)
+            return ColumnarBatch(pschema, aggs, 1)
+        out_keys, aggs, n_groups = agg_k.groupby_aggregate(
+            keys, specs, batch.num_rows_raw, cap, live_mask=mask,
+            shrink=True)
+        return ColumnarBatch(pschema, out_keys + aggs, n_groups)
+
+    # -- merge / final -----------------------------------------------------
+    def _merge_specs(self, batch: ColumnarBatch):
+        nk = len(self.grouping_src)
+        keys = list(batch.columns[:nk])
+        specs: List[agg_k.AggSpec] = []
+        ci = nk
+        for leaf in self.leaves:
+            for op in self._merge_ops(leaf):
+                specs.append(agg_k.AggSpec(op, batch.columns[ci],
+                                           ignore_nulls=leaf.ignore_nulls))
+                ci += 1
+        return keys, specs
+
+    def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
+        merged_in = concat_batches(self._partial_schema(), partials,
+                                   self.device)
+        keys, specs = self._merge_specs(merged_in)
+        return self._aggregate(keys, specs, merged_in, None)
+
+    def _final(self, batch: ColumnarBatch) -> ColumnarBatch:
+        keys, specs = self._merge_specs(batch)
+        merged = self._aggregate(keys, specs, batch, None)
+        nk = len(keys)
+        return self._project_results(merged.columns[:nk],
+                                     merged.columns[nk:], merged.num_rows)
+
+    def _project_results(self, out_keys: List[Column], aggs: List[Column],
+                         n_groups: int) -> ColumnarBatch:
+        """Evaluate the output expressions over [keys..., leaf values...]
+        (avg = sum / count; counts never NULL)."""
+        leaf_cols: List[Column] = []
+        ai = 0
+        for leaf in self.leaves:
+            if leaf.op == "avg":
+                s, c = aggs[ai], aggs[ai + 1]
+                valid = s.validity & (c.data > 0)
+                data = torch.where(valid, s.data / torch.clamp(
+                    c.data.to(torch.float64), min=1.0), 0.0)
+                leaf_cols.append(Column(dt.FLOAT64, data, valid))
+            elif leaf.op in ("count", "count_star"):
+                c = aggs[ai]
+                live = torch.arange(c.capacity, device=c.device) < \
+                    max(n_groups, 1)
+                data = torch.where(live & c.validity, c.data, 0)
+                leaf_cols.append(Column(dt.INT64, data, live))
+            else:
+                leaf_cols.append(aggs[ai])
+            ai += len(self._merge_ops(leaf))
+        fields = [dt.Field(f"_k{i}", self.grouping_src[i].dtype, True)
+                  for i in range(len(out_keys))]
+        fields += [dt.Field(f"_l{i}", l.dtype, True)
+                   for i, l in enumerate(self.leaves)]
+        internal = ColumnarBatch(dt.Schema(fields), list(out_keys) +
+                                 leaf_cols, n_groups)
+        out_cols = [ex.materialize(self._rewrite_result(e, len(out_keys))
+                                   .eval(internal), internal)
+                    for e in self.aggregate_exprs]
+        return ColumnarBatch(self._out_schema, out_cols, n_groups)
+
+    def _rewrite_result(self, e: ex.Expression, nk: int) -> ex.Expression:
+        def fn(node):
+            for i, leaf in enumerate(self.leaves):
+                if node is leaf:
+                    return ex.BoundReference(nk + i, leaf.dtype, True)
+            for gi, g in enumerate(self.grouping_src):
+                if node is g or (isinstance(node, ex.ColumnRef) and
+                                 isinstance(g, ex.ColumnRef) and
+                                 node.col_name == g.col_name):
+                    return ex.BoundReference(gi, g.dtype, True)
+            return None
+        return e.transform_down(fn)
+
+    def _node_string(self):
+        chain = f" pre_stage={self.pre_stage.describe()}" \
+            if self.pre_stage is not None else ""
+        return f"TpuHashAggregateExec[complete]{chain}"
+
+
+# ---------------------------------------------------------------------------
+# Sort / Limit
+# ---------------------------------------------------------------------------
+
+class TpuSortExec(TpuExec):
+    """Global sort of one partition (K2 lanes + stable torch.sort)."""
+
+    def __init__(self, child: TpuExec, orders: List[lp.SortOrder]):
+        super().__init__(child)
+        self.orders = [lp.SortOrder(bind_refs(o.child, child.schema),
+                                    o.ascending, o.nulls_first)
+                       for o in orders]
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def children_coalesce_goal(self, i: int):
+        return "single"
+
+    def execute(self) -> List[Partition]:
+        return [self._sort(p) for p in self.children[0].execute()]
+
+    def _sort(self, part: Partition) -> Partition:
+        batches = list(part)
+        if not batches:
+            return
+        batch = concat_batches(self.schema, batches, self.device)
+        keys = [K.SortKey(ex.materialize(o.child.eval(batch), batch),
+                          o.ascending, o.nulls_first) for o in self.orders]
+        idx = K.sort_indices(keys, batch.num_rows, batch.capacity)
+        cols = [K.gather_column(c, idx) for c in batch.columns]
+        yield ColumnarBatch(self.schema, cols, batch.num_rows)
+
+
+class TpuLimitExec(TpuExec):
+    def __init__(self, child: TpuExec, n: int):
+        super().__init__(child)
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute(self) -> List[Partition]:
+        return [self._local(p) for p in self.children[0].execute()]
+
+    def _local(self, part: Partition) -> Partition:
+        remaining = self.n
+        for b in part:
+            if remaining <= 0:
+                return
+            take = min(remaining, b.num_rows)
+            if take < b.num_rows:
+                cols = [K.rebucket_column(c, take, bucket(take))
+                        for c in b.columns]
+                b = ColumnarBatch(self.schema, cols, take)
+            remaining -= take
+            yield b

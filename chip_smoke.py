@@ -7,17 +7,19 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
      timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes (2^20-row batches) and at edge cases, with the stated
-     tolerance, plus CUDA-event timings of kernel, twin and (where one
-     exists) the single PyTorch call computing the same function;
-  4. the main path: TPC-H q6 and q1 through TpuSession -> DataFrame ->
-     collect on benchmarks/datagen.py lineitem data at scale factor --sf,
-     held to a numpy oracle computed independently from the same arrays;
-     the launch counters are zeroed just before and read just after, and
-     every kernel of each query's path must have launched; the warm runs
-     must be served from the device scan cache (no column uploaded, no
-     cache entry refused).
+  3. each kernel (K1-K7) against its plain PyTorch twin on the card, at
+     the main path's shapes and at edge cases, with the stated tolerance,
+     plus CUDA-event timings of kernel, twin and (where one exists) the
+     single PyTorch call computing the same function;
+  4. the main path: TPC-H q6, q1, q3, q12 and q4 through TpuSession ->
+     DataFrame -> collect on benchmarks/datagen.py lineitem, orders and
+     customer data at scale factor --sf, one cold and three hot runs each,
+     held to numpy oracles computed independently from the same arrays
+     (sort + searchsorted joins); the launch counters are zeroed just
+     before and read just after, and every kernel of each query's path
+     must have launched in its cold run; the warm runs must be served from
+     the device scan cache (no column uploaded or evicted, no cache entry
+     refused).
 Then the kernel summary line, the card line and, last, the result line
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and no
 result line. Without a CUDA device, or without the repository beside it,
@@ -36,6 +38,13 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+
+# K6/K7's main-path shape: q3's second join at SF 10 probes the ~1.46 M rows
+# of customer x orders (capacity 2^21) into the ~32 M lineitem rows left by
+# l_shipdate > 1995-03-15 (capacity 2^25); the keys are order keys.
+Q3_BUILD_ROWS, Q3_BUILD_CAP = 32_000_000, 1 << 25
+Q3_PROBE_ROWS, Q3_PROBE_CAP = 1_460_000, 1 << 21
+Q3_KEY_RANGE = 15_000_001
 
 
 def emit(obj) -> None:
@@ -421,6 +430,220 @@ def check_k4(device, rng) -> dict:
     }
 
 
+def check_k5(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import kernels as K
+    checks = 0
+    for cap, n in ((128, 100), (1000, 1000), (1 << 20, (1 << 20) - 4321),
+                   (1 << 22, (1 << 22) - 7)):
+        idx = torch.arange(cap, device=device)
+        for kind in ("none", "all", "alternating", "random", "sparse"):
+            if kind == "none":
+                keep = torch.zeros(cap, dtype=torch.bool, device=device)
+            elif kind == "all":
+                keep = idx < n
+            elif kind == "alternating":
+                keep = (idx % 2 == 0) & (idx < n)
+            else:
+                frac = 0.5 if kind == "random" else 0.001
+                keep = (torch.rand(cap, device=device) < frac) & (idx < n)
+            got = K.compaction_indices(keep)
+            want = K._compaction_indices_torch(keep)
+            tensor_err(got[0], want[0], f"K5 perm {kind} cap={cap}")
+            tensor_err(got[1], want[1], f"K5 count {kind} cap={cap}")
+            checks += 1
+    # the main path's shape: q3's lineitem filter (l_shipdate > 1995-03-15
+    # keeps ~55%) over one 2^20-row scan batch
+    cap = 1 << 20
+    keep = (torch.rand(cap, device=device) < 0.55) & \
+        (torch.arange(cap, device=device) < cap - 4321)
+    err = max(tensor_err(a, b, "K5 q3 filter") for a, b in zip(
+        K.compaction_indices(keep), K._compaction_indices_torch(keep)))
+    return {
+        "name": "compact_scan", "checks": checks + 1, "max_abs_err": err,
+        "tolerance": "exact (permutation and count)",
+        "ms": time_ms(lambda: K.compaction_indices(keep)),
+        "plain_ms": time_ms(lambda: K._compaction_indices_torch(keep)),
+        "library_ms": time_ms(lambda: (torch.argsort(~keep, stable=True),
+                                       keep.sum())),
+        "bound_ms": bound_ms(cap * (1 + 8) + 4),
+    }
+
+
+def _key_column(values, valid, cap, device, tname="bigint"):
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    return Column.from_numpy(values, dt.of(tname), valid, capacity=cap,
+                             device=device)
+
+
+def _probe_inputs(rng, device, n_build, bcap, n_probe, pcap, key_range):
+    """q3-shaped int64 keys (l_orderkey against the orders that joined):
+    the sorted build side and the probe lanes."""
+    from spark_rapids_tpu_torch.ops import joins as J
+    bvals = rng.integers(1, key_range, n_build)
+    pvals = rng.integers(1, key_range, n_probe)
+    bcol = _key_column(bvals, None, bcap, device)
+    pcol = _key_column(pvals, None, pcap, device)
+    side = J.sort_build([bcol], n_build)
+    plane, pvalid = J._normalize_words([pcol])
+    return side, plane, pvalid, bvals, pvals
+
+
+def _probe_err(got, want, what: str) -> float:
+    for g, w, name in zip(got, want, ("lo", "count", "total")):
+        tensor_err(g, w, f"{what} {name}")
+    return 0.0
+
+
+def _join_key_cases(rng, device):
+    """(name, build keys, n_build, stream keys, n_stream): the edge cases
+    of the CPU parity tests, at card sizes."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    cases = []
+    n_b, n_s = 60000, 50000
+    b = rng.integers(0, 20000, n_b)
+    s_ = rng.integers(0, 25000, n_s)
+    cases.append(("int64 dups", [_key_column(b, None, 1 << 16, device)],
+                  n_b, [_key_column(s_, None, 1 << 16, device)], n_s))
+    cases.append(("int64 nulls both sides",
+                  [_key_column(b, rng.random(n_b) > 0.1, 1 << 16, device)],
+                  n_b,
+                  [_key_column(s_, rng.random(n_s) > 0.1, 1 << 16, device)],
+                  n_s))
+    fb = (rng.integers(-3, 4, n_b) / 2).astype(np.float64)
+    fs = (rng.integers(-3, 4, n_s) / 2).astype(np.float64)
+    fb[rng.random(n_b) < 0.1] = np.nan
+    fs[rng.random(n_s) < 0.1] = np.nan
+    fb[fb == 0] = -0.0
+    cases.append(("f64 NaN and -0.0/+0.0",
+                  [_key_column(fb, None, 1 << 16, device, "double")], n_b,
+                  [_key_column(fs, None, 1 << 16, device, "double")], n_s))
+    words_b = np.array(["MAIL", "SHIP", "AIR", "REG AIR", ""])[
+        rng.integers(0, 5, n_b)]
+    words_s = np.array(["MAIL", "SHIP", "TRUCK", "REG AIR XL", ""])[
+        rng.integers(0, 5, n_s)]
+    cases.append(("int + string, widths 8 and 16", [
+        _key_column(b % 50, None, 1 << 16, device),
+        Column.from_numpy(words_b, dt.STRING, capacity=1 << 16,
+                          device=device, width=8)], n_b, [
+        _key_column(s_ % 50, None, 1 << 16, device),
+        Column.from_numpy(words_s, dt.STRING, capacity=1 << 16,
+                          device=device, width=16)], n_s))
+    cases.append(("empty build", [_key_column(b[:0], None, 128, device)], 0,
+                  [_key_column(s_, None, 1 << 16, device)], n_s))
+    cases.append(("empty stream", [_key_column(b, None, 1 << 16, device)],
+                  n_b, [_key_column(s_[:0], None, 128, device)], 0))
+    full = np.arange(1 << 16)
+    cases.append(("build fills its capacity",
+                  [_key_column(full, None, 1 << 16, device)], 1 << 16,
+                  [_key_column(s_, None, 1 << 16, device)], n_s))
+    return cases
+
+
+def check_k6(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks = 0
+    for name, bk, nb, sk, ns in _join_key_cases(rng, device):
+        widths = J.pair_widths(bk, sk)
+        side = J.sort_build(J.widen_keys(bk, widths), nb)
+        plane, pvalid = J._normalize_words(J.widen_keys(sk, widths))
+        _probe_err(J.join_probe(side.lanes, nb, plane, pvalid, ns),
+                   J._join_probe_torch(side.lanes, nb, plane, pvalid, ns),
+                   f"K6 {name}")
+        checks += 1
+    # the main path's shape: q3's second join
+    n_build, n_probe, pcap = Q3_BUILD_ROWS, Q3_PROBE_ROWS, Q3_PROBE_CAP
+    side, plane, pvalid, bvals, pvals = _probe_inputs(
+        rng, device, n_build, Q3_BUILD_CAP, n_probe, pcap, Q3_KEY_RANGE)
+    got = J.join_probe(side.lanes, n_build, plane, pvalid, n_probe)
+    err = _probe_err(got, J._join_probe_torch(side.lanes, n_build, plane,
+                                               pvalid, n_probe), "K6 q3")
+    srt = torch.sort(torch.from_numpy(bvals).to(device)).values
+    pv = torch.from_numpy(pvals).to(device)
+    lib_lo = torch.searchsorted(srt, pv, side="left")
+    lib_hi = torch.searchsorted(srt, pv, side="right")
+    if not torch.equal(lib_lo.to(torch.int32), got[0][:n_probe]) or \
+            not torch.equal((lib_hi - lib_lo).to(torch.int32),
+                            got[1][:n_probe]):
+        raise AssertionError("K6 disagrees with torch.searchsorted")
+    # what the function needs, whatever the kernel reads: each live probe
+    # row's int64 key and validity read and its lo and count written, at
+    # most one 8-byte key per live build row read, the total written
+    bytes_needed = n_probe * (8 + 1 + 4 + 4) + n_build * 8 + 8
+    return {
+        "name": "join_probe", "checks": checks + 2, "max_abs_err": err,
+        "tolerance": "exact (lo, count, total)", "lanes": plane.shape[0],
+        "n_build": n_build, "n_probe": n_probe,
+        "ms": time_ms(lambda: J.join_probe(side.lanes, n_build, plane,
+                                           pvalid, n_probe)),
+        "plain_ms": time_ms(lambda: J._join_probe_torch(
+            side.lanes, n_build, plane, pvalid, n_probe), iters=5),
+        "library_ms": time_ms(lambda: (
+            torch.searchsorted(srt, pv, side="left"),
+            torch.searchsorted(srt, pv, side="right"))),
+        "bound_ms": bound_ms(bytes_needed),
+    }
+
+
+def _expand_err(got, want, what: str) -> float:
+    for g, w, name in zip(got, want, ("stream_idx", "build_idx", "live")):
+        tensor_err(g, w, f"{what} {name}")
+    return 0.0
+
+
+def check_k7(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import bucket
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks = 0
+    for name, bk, nb, sk, ns in _join_key_cases(rng, device):
+        m = J.join_match(bk, nb, sk, ns, sk[0].capacity)
+        out_cap = bucket(max(int(m.total_pairs), 1))
+        _expand_err(J._expand_indices(m, out_cap),
+                    J._expand_indices_torch(m, out_cap), f"K7 {name}")
+        checks += 1
+    # skew: one stream row matching a hot key of a million build rows
+    cap = 1 << 20
+    hot = np.where(np.arange(cap) < 1_000_000, 7, np.arange(cap))
+    m = J.join_match([_key_column(hot, None, cap, device)], cap,
+                     [_key_column(np.array([7, 3, 7]), None, 128, device)],
+                     3, 128)
+    out_cap = bucket(int(m.total_pairs))
+    _expand_err(J._expand_indices(m, out_cap),
+                J._expand_indices_torch(m, out_cap), "K7 skewed key")
+    # the main path's shape: q3's second join
+    n_build, n_probe, pcap = Q3_BUILD_ROWS, Q3_PROBE_ROWS, Q3_PROBE_CAP
+    side, plane, pvalid, _b, _p = _probe_inputs(
+        rng, device, n_build, Q3_BUILD_CAP, n_probe, pcap, Q3_KEY_RANGE)
+    lo, count, total = J.join_probe(side.lanes, n_build, plane, pvalid,
+                                    n_probe)
+    m = J.JoinMatch(lo, count, side.order, total, None)
+    n_pairs = int(total)
+    out_cap = bucket(n_pairs)
+    err = _expand_err(J._expand_indices(m, out_cap),
+                      J._expand_indices_torch(m, out_cap), "K7 q3")
+    rows = torch.arange(pcap, device=device)
+    lib = torch.repeat_interleave(rows, count.to(torch.int64),
+                                  output_size=n_pairs)
+    if not torch.equal(lib, J._expand_indices(m, out_cap)[0][:n_pairs]):
+        raise AssertionError("K7 disagrees with torch.repeat_interleave")
+    return {
+        "name": "join_expand", "checks": checks + 2, "max_abs_err": err,
+        "tolerance": "exact (indices)", "pairs": n_pairs,
+        "out_capacity": out_cap,
+        "ms": time_ms(lambda: J._expand_indices(m, out_cap)),
+        "plain_ms": time_ms(lambda: J._expand_indices_torch(m, out_cap)),
+        "library_ms": time_ms(lambda: torch.repeat_interleave(
+            rows, count.to(torch.int64), output_size=n_pairs)),
+        # count and lo of each live probe row read, one order entry per
+        # pair read, two int64 indices per pair and the total written
+        "bound_ms": bound_ms(n_probe * (4 + 4) + n_pairs * (8 + 16) + 8),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -472,8 +695,123 @@ def check_rows(name: str, got, want, rel: float = 1e-9) -> None:
                 raise AssertionError(f"{name}: {g} vs oracle {w}")
 
 
-PATH_KERNELS = {"q6": ("masked_reduce",),
-                "q1": ("sort_key_lanes", "segment_bounds", "segment_reduce")}
+def np_join(lk, rk):
+    """Inner equi-join of two numpy key arrays by sort + searchsorted:
+    (left row, right row) of every matching pair."""
+    order = np.argsort(rk, kind="stable")
+    srt = rk[order]
+    lo = np.searchsorted(srt, lk, "left")
+    cnt = np.searchsorted(srt, lk, "right") - lo
+    li = np.repeat(np.arange(len(lk)), cnt)
+    first = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt)
+    return li, order[np.arange(int(cnt.sum())) + first]
+
+
+def oracle_q3(l, o, c):
+    cust = np.nonzero(c["c_mktsegment"] == "BUILDING")[0]
+    ords = np.nonzero(o["o_orderdate"] < 9204)[0]
+    _ci, oi = np_join(c["c_custkey"][cust], o["o_custkey"][ords])
+    ords = ords[oi]
+    items = np.nonzero(l["l_shipdate"] > 9204)[0]
+    oj, lj = np_join(o["o_orderkey"][ords], l["l_orderkey"][items])
+    ords, items = ords[oj], items[lj]
+    rev = l["l_extendedprice"][items] * (1.0 - l["l_discount"][items])
+    keys, inv = np.unique(l["l_orderkey"][items], return_inverse=True)
+    sums = np.bincount(inv, weights=rev)
+    head = np.zeros(len(keys), np.int64)
+    head[inv] = ords                   # every row of a group: one order
+    date = o["o_orderdate"][head]
+    top = np.lexsort((date, -sums))[:10]
+    return [(int(keys[i]), int(date[i]), int(o["o_shippriority"][head[i]]),
+             float(sums[i])) for i in top]
+
+
+def oracle_q12(l, o):
+    m = (np.isin(l["l_shipmode"], ["MAIL", "SHIP"]) &
+         (l["l_commitdate"] < l["l_receiptdate"]) &
+         (l["l_shipdate"] < l["l_commitdate"]) &
+         (l["l_receiptdate"] >= 8766) & (l["l_receiptdate"] < 9131))
+    items = np.nonzero(m)[0]
+    oi, li = np_join(o["o_orderkey"], l["l_orderkey"][items])
+    high = np.isin(o["o_orderpriority"][oi], ["1-URGENT", "2-HIGH"])
+    mode = l["l_shipmode"][items[li]]
+    return [(str(k), int((high & (mode == k)).sum()),
+             int((~high & (mode == k)).sum())) for k in np.unique(mode)]
+
+
+def oracle_q4(l, o):
+    ords = np.nonzero((o["o_orderdate"] >= 8766) &
+                      (o["o_orderdate"] < 8766 + 91))[0]
+    late = np.unique(l["l_orderkey"][l["l_commitdate"] <
+                                     l["l_receiptdate"]])
+    keys = o["o_orderkey"][ords]
+    pos = np.minimum(np.searchsorted(late, keys), max(len(late) - 1, 0))
+    hit = (len(late) > 0) & (late[pos] == keys)
+    prio = o["o_orderpriority"][ords[hit]]
+    return [(str(k), int((prio == k).sum())) for k in np.unique(prio)]
+
+
+PATH_KERNELS = {
+    "q6": ("masked_reduce",),
+    "q1": ("sort_key_lanes", "segment_bounds", "segment_reduce"),
+    "q3": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
+           "segment_bounds", "segment_reduce"),
+    "q12": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
+            "segment_bounds", "segment_reduce"),
+    "q4": ("compact_scan", "sort_key_lanes", "join_probe", "segment_bounds",
+           "segment_reduce"),
+}
+
+
+def run_query(name: str, tables, cache, oracle, n_rows: int, device
+              ) -> dict:
+    """One cold and three hot runs of a query through the session, each
+    held to the oracle; the warm runs must be served from the scan cache
+    and every kernel of the query's path must launch in its cold run."""
+    import torch
+    from spark_rapids_tpu_torch import native, queries
+    qfn = queries.QUERIES[name]
+    before = native.counts()
+    uploads = cache.uploads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    rows = qfn(tables).collect()
+    cold = time.perf_counter() - t0
+    cold_launches = {k: v - before[k] for k, v in native.counts().items()}
+    check_rows(name, rows, oracle)
+    cold_uploads = cache.uploads - uploads
+    resident = (cache.bytes, cache.uploads, cache.evicted)
+    hots = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hot_rows = qfn(tables).collect()
+        hots.append(time.perf_counter() - t0)
+        check_rows(name, hot_rows, oracle)
+    if cache.refused or (cache.bytes, cache.uploads, cache.evicted) != \
+            resident:
+        now = (cache.bytes, cache.uploads, cache.evicted)
+        raise AssertionError(
+            f"{name}: warm runs not served from the scan cache "
+            f"((bytes, uploads, evicted) {resident} -> {now}, refused "
+            f"{cache.refused})")
+    missing = [k for k in PATH_KERNELS[name] if cold_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name} did not launch {missing}")
+    n_batches = -(-n_rows // (1 << 20))
+    return {
+        "phase": "main", "query": name, "tables": queries.TABLES[name],
+        "lineitem_rows": n_rows, "lineitem_batches": n_batches,
+        "cold_s": cold, "hot_s": min(hots),
+        "hot_rows_per_s": n_rows / min(hots),
+        "launches_cold_run": cold_launches,
+        "launches_per_lineitem_batch": {
+            k: v / n_batches for k, v in cold_launches.items()},
+        "scan_column_batches_uploaded_cold": cold_uploads,
+        "scan_cache_bytes": cache.bytes,
+        "scan_cache_columns_evicted": cache.evicted,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+        "result_rows": len(rows), "oracle": "numpy, relative 1e-9"}
 
 
 def main_path(sf: float, device) -> tuple:
@@ -482,58 +820,30 @@ def main_path(sf: float, device) -> tuple:
     from spark_rapids_tpu_torch import native, queries
     from spark_rapids_tpu_torch.api.session import TpuSession
     t0 = time.perf_counter()
-    data = datagen.gen_lineitem(sf)
+    data = {"lineitem": datagen.gen_lineitem(sf),
+            "orders": datagen.gen_orders(sf),
+            "customer": datagen.gen_customer(sf)}
     gen_s = time.perf_counter() - t0
-    n_rows = len(data["l_orderkey"])
-    oracles = {"q6": [(oracle_q6(data),)], "q1": oracle_q1(data)}
+    l, o, c = data["lineitem"], data["orders"], data["customer"]
+    n_rows = len(l["l_orderkey"])
+    t0 = time.perf_counter()
+    oracles = {"q6": [(oracle_q6(l),)], "q1": oracle_q1(l),
+               "q3": oracle_q3(l, o, c), "q12": oracle_q12(l, o),
+               "q4": oracle_q4(l, o)}
+    oracle_s = time.perf_counter() - t0
     session = TpuSession.builder.config(
         {"spark.rapids.torch.device": str(device)}).getOrCreate()
-    cache = session.scan_cache
-    tables = {"lineitem": session.createDataFrame(
-        data, schema=queries.lineitem_schema(data))}
+    tables = {name: session.createDataFrame(
+        cols, schema=queries.table_schema(cols))
+        for name, cols in data.items()}
     torch.cuda.reset_peak_memory_stats(device)
     native.reset_counts()
-    lines = []
-    for name in ("q6", "q1"):
-        qfn = queries.QUERIES[name]
-        before = native.counts()
-        uploads = cache.uploads
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rows = qfn(tables).collect()
-        cold = time.perf_counter() - t0
-        cold_launches = {k: v - before[k] for k, v in native.counts().items()}
-        check_rows(name, rows, oracles[name])
-        cold_uploads = cache.uploads - uploads
-        resident = (cache.bytes, cache.uploads)
-        hots = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            hot_rows = qfn(tables).collect()
-            hots.append(time.perf_counter() - t0)
-            check_rows(name, hot_rows, oracles[name])
-        if cache.refused or (cache.bytes, cache.uploads) != resident:
-            raise AssertionError(
-                f"{name}: warm runs not served from the scan cache "
-                f"(bytes {resident[0]} -> {cache.bytes}, uploads "
-                f"{resident[1]} -> {cache.uploads}, refused {cache.refused})")
-        missing = [k for k in PATH_KERNELS[name] if cold_launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"{name} did not launch {missing}")
-        n_batches = -(-n_rows // (1 << 20))
-        lines.append({
-            "phase": "main", "query": name, "sf": sf, "rows": n_rows,
-            "batches": n_batches, "cold_s": cold,
-            "hot_s": min(hots), "hot_rows_per_s": n_rows / min(hots),
-            "launches_cold_run": cold_launches,
-            "launches_per_batch": {k: v / n_batches
-                                   for k, v in cold_launches.items()},
-            "scan_column_batches_uploaded_cold": cold_uploads,
-            "scan_cache_bytes": cache.bytes,
-            "result_rows": len(rows), "oracle": "numpy, relative 1e-9"})
+    lines = [run_query(name, tables, session.scan_cache, oracles[name],
+                       n_rows, device)
+             for name in ("q6", "q1", "q3", "q12", "q4")]
     launches = native.counts()
-    peak = torch.cuda.max_memory_allocated(device)
-    return lines, launches, peak, gen_s
+    peak = max(line["peak_device_bytes"] for line in lines)
+    return lines, launches, peak, gen_s, oracle_s
 
 
 REPLACES = {
@@ -541,6 +851,9 @@ REPLACES = {
     "sort_key_lanes": "spark_rapids_tpu/ops/kernels.py:175",
     "segment_bounds": "spark_rapids_tpu/ops/kernels.py:338",
     "segment_reduce": "spark_rapids_tpu/ops/aggregates.py:95",
+    "compact_scan": "spark_rapids_tpu/ops/kernels.py:235",
+    "join_probe": "spark_rapids_tpu/ops/joins.py:119",
+    "join_expand": "spark_rapids_tpu/ops/joins.py:158",
 }
 
 
@@ -573,17 +886,19 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     results = {}
-    for check in (check_k1, check_k2, check_k3, check_k4):
+    for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
+                  check_k6, check_k7):
         r = check(device, rng)
         torch.cuda.synchronize()
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
 
-    lines, launches, peak, gen_s = main_path(args.sf, device)
+    lines, launches, peak, gen_s, oracle_s = main_path(args.sf, device)
     for line in lines:
         emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
-          "peak_device_bytes": peak, "launches": launches})
+          "oracle_s": oracle_s, "peak_device_bytes": peak,
+          "launches": launches})
     unused = [k for k in native.KERNELS if launches[k] <= 0]
     if unused:
         raise AssertionError(f"main path never launched {unused}")

@@ -1,12 +1,13 @@
 """Column wrapper: the operator-overloaded expression builder (pyspark
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
-operators."""
+operators, ``isin`` and the ``when(...).otherwise(...)`` chain."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from ..ops import arithmetic as ar
+from ..ops import conditionals as co
 from ..ops import expressions as ex
 from ..ops import predicates as pr
 from ..plan import logical as lp
@@ -50,6 +51,11 @@ class Col:
     def isNull(self): return Col(pr.IsNull(self.expr))
     def isNotNull(self): return Col(pr.IsNotNull(self.expr))
 
+    def isin(self, *values):
+        vals = list(values[0]) if len(values) == 1 and \
+            isinstance(values[0], (list, tuple, set)) else list(values)
+        return Col(pr.In(self.expr, vals))
+
     def alias(self, name: str) -> "Col":
         return Col(ex.Alias(self.expr, name))
 
@@ -59,7 +65,29 @@ class Col:
     def desc(self) -> lp.SortOrder:
         return lp.SortOrder(self.expr, ascending=False)
 
+    def when(self, condition, value):
+        raise TypeError("use functions.when(cond, value).otherwise(...)")
+
+    def otherwise(self, value):
+        raise TypeError("otherwise() only valid on a when() chain")
+
     def __repr__(self):
         return f"Col({self.expr!r})"
 
     __hash__ = None  # type: ignore[assignment]
+
+
+class WhenChain(Col):
+    """functions.when(...).when(...).otherwise(...) builder."""
+
+    def __init__(self, branches, else_value=None):
+        self._branches = branches
+        self._else = else_value
+        super().__init__(co.CaseWhen(branches, else_value))
+
+    def when(self, condition, value):
+        return WhenChain(self._branches + [(_unwrap(condition),
+                                            _unwrap(value))], self._else)
+
+    def otherwise(self, value):
+        return WhenChain(self._branches, _unwrap(value))

@@ -1,6 +1,6 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn, groupBy().agg, agg, orderBy, limit, collect and
+select, withColumn, join, groupBy().agg, agg, orderBy, limit, collect and
 collect_batch."""
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from typing import Any, List, Optional, Union
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
 from ..ops import expressions as ex
+from ..ops import predicates as pr
 from ..plan import logical as lp
 from .column import Col, _unwrap
 
@@ -63,6 +64,28 @@ class DataFrame:
         if not replaced:
             exprs.append(ex.Alias(_unwrap(col), name))
         return self._df(lp.Project(self._plan, exprs))
+
+    _JOIN_ALIASES = {"outer": "full", "full_outer": "full",
+                     "leftouter": "left", "left_outer": "left",
+                     "rightouter": "right", "right_outer": "right",
+                     "leftsemi": "left_semi", "semi": "left_semi",
+                     "leftanti": "left_anti", "anti": "left_anti"}
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner"
+             ) -> "DataFrame":
+        """Join on a Column condition or a list of them (ANDed). Join by
+        column names (``on="k"``) is not ported yet."""
+        how = self._JOIN_ALIASES.get(how, how)
+        conds = list(on) if isinstance(on, (list, tuple)) else \
+            ([] if on is None else [on])
+        if any(isinstance(c, str) for c in conds):
+            raise NotImplementedError(
+                "join on column names is not ported to the PyTorch engine "
+                "yet")
+        cond = None
+        for c in conds:
+            cond = _unwrap(c) if cond is None else pr.And(cond, _unwrap(c))
+        return self._df(lp.Join(self._plan, other._plan, how, cond))
 
     def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
         return GroupedData(self, [_to_expr(c) for c in cols])

@@ -7,7 +7,7 @@ from typing import Any
 
 from ..ops import expressions as ex
 from ..plan import logical as lp
-from .column import Col, _unwrap
+from .column import Col, WhenChain, _unwrap
 
 
 def col(name: str) -> Col:
@@ -16,6 +16,10 @@ def col(name: str) -> Col:
 
 def lit(value: Any) -> Col:
     return Col(ex.Literal(value))
+
+
+def when(condition, value) -> WhenChain:
+    return WhenChain([(_unwrap(condition), _unwrap(value))])
 
 
 def _agg(op: str, c, **kw) -> Col:

@@ -101,10 +101,23 @@ class TpuSession:
     def _run(self, analyzed: lp.LogicalPlan) -> ColumnarBatch:
         exec_plan = self.plan(analyzed)
         self._last_plan = exec_plan
-        return exec_plan.execute_collect()
+        # the scan cache evicts no column this query reads while it runs
+        self.scan_cache.pin(k for scan in _scans(exec_plan)
+                            for k in scan.cache_keys().values())
+        try:
+            return exec_plan.execute_collect()
+        finally:
+            self.scan_cache.pin(())
 
     def last_plan(self) -> Optional[ph.TpuExec]:
         return self._last_plan
+
+
+def _scans(node: ph.TpuExec):
+    if isinstance(node, ph.TpuLocalScanExec):
+        yield node
+    for c in node.children:
+        yield from _scans(c)
 
 
 def _schema_types(schema: SchemaLike) -> Dict[str, dt.DType]:

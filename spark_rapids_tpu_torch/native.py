@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
-           "segment_reduce")
+           "segment_reduce", "compact_scan", "join_probe", "join_expand")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -62,6 +62,19 @@ _SIGNATURES = {
         "segment_reduce": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _L, _P, _P,
                                 _P, _P]),
         "segment_reduce_scratch_bytes": (_L, [_L]),
+    },
+    "compact_scan": {
+        "compact_scan": (_I, [_P, _L, _P, _P, _P, _P]),
+        "compact_scan_scratch_bytes": (_L, [_L]),
+    },
+    "join_probe": {
+        "join_probe": (_I, [_P, _L, _P, _P, _L, _I,
+                            ctypes.POINTER(ctypes.c_void_p), _I, _P, _P, _P,
+                            _P, _P]),
+    },
+    "join_expand": {
+        "join_expand": (_I, [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P]),
+        "join_expand_scratch_bytes": (_L, [_L]),
     },
 }
 

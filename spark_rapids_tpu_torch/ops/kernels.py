@@ -11,6 +11,10 @@ that computes the same result:
 * K3 :func:`segment_bounds` (csrc/segment_bounds.cu, twin
   :func:`_segment_bounds_torch`) finds the group starts, group ids, group
   count and each group's first row of key-sorted columns.
+* K5 :func:`compaction_indices` (csrc/compact_scan.cu, twin
+  :func:`_compaction_indices_torch`) writes the stable kept-first
+  permutation of a keep mask and the kept count; :func:`compact_columns`
+  (every filter) gathers through it.
 
 A wrapper runs its twin only for tensors on the CPU. For a CUDA tensor it
 launches its kernel or raises. Gather, concat and slice stay torch
@@ -249,7 +253,12 @@ def sort_indices(keys: Sequence[SortKey], num_rows, capacity: int,
     """Stable permutation (int64) ordering live rows by the keys; padding
     and dead rows go last. K2 builds the lanes, then one stable
     ``torch.sort`` per lane, least significant lane first."""
-    lanes = sort_key_lanes(keys, num_rows, capacity, live_mask)
+    return lanes_order(sort_key_lanes(keys, num_rows, capacity, live_mask))
+
+
+def lanes_order(lanes: torch.Tensor) -> torch.Tensor:
+    """Stable permutation (int64) sorting int64[lanes, n] lexicographically,
+    most significant lane first: one stable ``torch.sort`` per lane."""
     perm = None
     for lane in reversed(range(lanes.shape[0])):
         k = lanes[lane] if perm is None else lanes[lane][perm]
@@ -282,10 +291,36 @@ def gather_column(col: Column, indices: torch.Tensor,
     return Column(col.dtype, data, validity, lengths)
 
 
-def compaction_indices(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(perm, count): stable order with kept rows first; ``keep`` is False
-    on padding. Plain torch (cumsum + scatter): the general filter
-    compaction kernel (B7) is not ported yet."""
+def compaction_indices(keep: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm int64[n], count int32 0-d): stable order with kept rows first;
+    ``keep`` is False on padding. The count stays on the device. K5
+    (csrc/compact_scan.cu) on the card."""
+    device = keep.device
+    if device.type == "cpu":
+        return _compaction_indices_torch(keep)
+    if device.type != "cuda":
+        raise RuntimeError(f"compaction_indices: unsupported device {device}")
+    if keep.dtype != torch.bool or keep.dim() != 1 or \
+            not keep.is_contiguous():
+        raise ValueError("keep must be a contiguous bool[n] tensor")
+    n = keep.shape[0]
+    perm = torch.empty(n, dtype=torch.int64, device=device)
+    count = torch.empty(1, dtype=torch.int32, device=device)
+    lib = native.library("compact_scan")
+    scratch = torch.empty(int(lib.compact_scan_scratch_bytes(n)),
+                          dtype=torch.uint8, device=device)
+    rc = lib.compact_scan(keep.data_ptr(), n, perm.data_ptr(),
+                          count.data_ptr(), scratch.data_ptr(),
+                          native.stream_ptr(device))
+    native.check(rc, "compact_scan")
+    native.bump("compact_scan")
+    return perm, count.reshape(())
+
+
+def _compaction_indices_torch(keep: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of K5: two cumsums and one scatter."""
     n = keep.shape[0]
     k = keep.to(torch.int64)
     n_keep = k.sum()
@@ -294,7 +329,7 @@ def compaction_indices(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     pos = torch.where(keep, pos_keep, pos_drop)
     perm = torch.empty(n, dtype=torch.int64, device=keep.device)
     perm.scatter_(0, pos, torch.arange(n, device=keep.device))
-    return perm, n_keep
+    return perm, n_keep.to(torch.int32)
 
 
 def compact_columns(cols: Sequence[Column], keep: torch.Tensor
@@ -411,7 +446,7 @@ def _segment_bounds_torch(key_cols: Sequence[Column], n_live, capacity: int):
     starts = _starts_torch(key_cols, n_live, capacity)
     seg_ids = (torch.cumsum(starts.to(torch.int32), 0) - 1).to(torch.int32)
     n_groups = starts.sum().to(torch.int32)
-    perm, _ = compaction_indices(starts)
+    perm, _ = _compaction_indices_torch(starts)
     return starts, seg_ids, n_groups, perm.to(torch.int32)
 
 

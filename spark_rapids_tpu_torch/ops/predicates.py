@@ -1,15 +1,16 @@
 """Predicate expressions: the port of spark_rapids_tpu/ops/predicates.py
-(comparisons, AND/OR/NOT, IS [NOT] NULL).
+(comparisons, AND/OR/NOT, IS [NOT] NULL, IN).
 
 Spark semantics: comparisons are NULL if either side is NULL; AND/OR are
 Kleene three-valued; NaN = NaN is TRUE and NaN is greater than every other
-double (``float_eq``/``float_lt``). String comparison needs the byte-matrix
-helpers of ops/strings_util.py, which are not ported yet: it raises.
+double (``float_eq``/``float_lt``). Strings compare bytewise through the
+byte-matrix helpers of ops/strings_util.py.
 """
 
 from __future__ import annotations
 
 import math
+from typing import List
 
 import numpy as np
 import torch
@@ -19,6 +20,7 @@ from ..columnar.batch import ColumnarBatch
 from ..columnar.column import Column, Scalar
 from .expressions import (Expression, combine_validity, data_validity,
                           result_column)
+from .strings_util import string_compare, string_equal
 
 
 def float_eq(l, r):
@@ -29,6 +31,15 @@ def float_eq(l, r):
 def float_lt(l, r):
     """Spark float ordering: NaN is greater than every other value."""
     return (l < r) | (torch.isnan(r) & ~torch.isnan(l))
+
+
+def _literal_cache(node: Expression) -> dict:
+    """The node's literal operands already on the device, by value, width
+    and device: a literal is copied there once, not once a batch."""
+    cache = getattr(node, "_literals", None)
+    if cache is None:
+        cache = node._literals = {}
+    return cache
 
 
 class BinaryComparison(Expression):
@@ -52,12 +63,14 @@ class BinaryComparison(Expression):
     def _cmp_float(self, l, r):
         raise NotImplementedError
 
+    def _string_cmp(self, lv, rv, batch: ColumnarBatch):
+        cmp = string_compare(lv, rv, batch.capacity, batch.device,
+                             _literal_cache(self))
+        return self._cmp(cmp, torch.zeros((), dtype=torch.int32,
+                                          device=batch.device))
+
     def eval(self, batch: ColumnarBatch):
         in_dtype = self.left.dtype
-        if in_dtype == dt.STRING:
-            raise NotImplementedError(
-                f"string comparison {self.symbol} is not ported yet "
-                "(needs ops/strings_util.py)")
         lv = self.left.eval(batch)
         rv = self.right.eval(batch)
         if isinstance(lv, Scalar) and isinstance(rv, Scalar):
@@ -65,11 +78,15 @@ class BinaryComparison(Expression):
                 return Scalar(None, dt.BOOL)
             return Scalar(bool(self._py_cmp(lv, rv)), dt.BOOL)
         device = batch.device
-        ld, lval = data_validity(lv, in_dtype, device)
-        rd, rval = data_validity(rv, in_dtype, device)
-        data = self._cmp_float(ld, rd) if in_dtype.is_floating \
-            else self._cmp(ld, rd)
-        validity = combine_validity(lval, rval)
+        if in_dtype == dt.STRING:
+            data = self._string_cmp(lv, rv, batch)
+            validity = combine_validity(_str_validity(lv), _str_validity(rv))
+        else:
+            ld, lval = data_validity(lv, in_dtype, device)
+            rd, rval = data_validity(rv, in_dtype, device)
+            data = self._cmp_float(ld, rd) if in_dtype.is_floating \
+                else self._cmp(ld, rd)
+            validity = combine_validity(lval, rval)
         if validity is not True:
             v = validity if isinstance(validity, torch.Tensor) else \
                 torch.tensor(bool(validity), device=device)
@@ -79,6 +96,9 @@ class BinaryComparison(Expression):
     def _py_cmp(self, lv: Scalar, rv: Scalar):
         """Host scalar compare with Spark's NaN semantics."""
         l, r = lv.value, rv.value
+        if self.left.dtype == dt.STRING:
+            return {"=": l == r, "!=": l != r, "<": l < r, "<=": l <= r,
+                    ">": l > r, ">=": l >= r}[self.symbol]
         if self.left.dtype.is_floating:
             npdt = np.dtype(self.left.dtype.numpy_dtype).type
             l, r = float(npdt(l)), float(npdt(r))
@@ -106,6 +126,10 @@ class EqualTo(BinaryComparison):
     def _cmp_float(self, l, r):
         return float_eq(l, r)
 
+    def _string_cmp(self, lv, rv, batch: ColumnarBatch):
+        return string_equal(lv, rv, batch.capacity, batch.device,
+                            _literal_cache(self))
+
 
 class NotEqual(BinaryComparison):
     symbol = "!="
@@ -115,6 +139,10 @@ class NotEqual(BinaryComparison):
 
     def _cmp_float(self, l, r):
         return ~float_eq(l, r)
+
+    def _string_cmp(self, lv, rv, batch: ColumnarBatch):
+        return ~string_equal(lv, rv, batch.capacity, batch.device,
+                             _literal_cache(self))
 
 
 class LessThan(BinaryComparison):
@@ -155,6 +183,12 @@ class GreaterThanOrEqual(BinaryComparison):
 
     def _cmp_float(self, l, r):
         return float_lt(r, l) | float_eq(l, r)
+
+
+def _str_validity(v):
+    """Validity of a string operand: a tensor, or a python bool for a
+    scalar (True = always valid)."""
+    return v.validity if isinstance(v, Column) else (not v.is_null)
 
 
 def _bool_dv(value, batch: ColumnarBatch):
@@ -251,3 +285,46 @@ class IsNotNull(Expression):
         live = batch.row_mask_raw()
         return result_column(dt.BOOL, v.validity & live, live,
                              batch.capacity)
+
+
+class In(Expression):
+    """``child IN (values)`` with a literal list: NULL input gives NULL;
+    no match and a NULL in the list gives NULL."""
+
+    def __init__(self, child: Expression, values: List):
+        super().__init__(child)
+        self.values = values
+
+    @property
+    def dtype(self):
+        return dt.BOOL
+
+    def eval(self, batch: ColumnarBatch):
+        child = self.children[0]
+        cap, device = batch.capacity, batch.device
+        v = child.eval(batch)
+        has_null = any(x is None for x in self.values)
+        concrete = [x for x in self.values if x is not None]
+        cache = _literal_cache(self)
+        match = torch.zeros(cap, dtype=torch.bool, device=device)
+        if child.dtype == dt.STRING:
+            for x in concrete:
+                match = match | string_equal(v, Scalar(x, dt.STRING), cap,
+                                             device, cache)
+        else:
+            vd, _ = data_validity(v, child.dtype, device)
+            key = (vd.dtype, str(device))
+            values = cache.get(key)
+            if values is None:
+                values = cache[key] = [torch.tensor(x, dtype=vd.dtype,
+                                                    device=device)
+                                       for x in concrete]
+            for x in values:
+                match = match | (vd == x).expand(cap)
+        vval = v.validity if isinstance(v, Column) else torch.full(
+            (cap,), not v.is_null, dtype=torch.bool, device=device)
+        validity = vval & (match | (not has_null))
+        return result_column(dt.BOOL, match & validity, validity, cap)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} IN {self.values!r})"

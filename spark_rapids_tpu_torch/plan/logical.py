@@ -1,6 +1,6 @@
 """Logical plan: the port of spark_rapids_tpu/plan/logical.py (scan, project,
-filter, aggregate, sort, limit) with its analysis: name resolution and the
-numeric/date coercions that insert implicit casts.
+filter, aggregate, join, sort, limit) with its analysis: name resolution and
+the numeric/date coercions that insert implicit casts.
 
 The scan's data is a :class:`HostTable` of numpy columns; the port needs no
 pyarrow on the main path.
@@ -15,6 +15,7 @@ import numpy as np
 from ..columnar import dtypes as dt
 from ..columnar.column import Column
 from ..ops import arithmetic as ar
+from ..ops import conditionals as co
 from ..ops import expressions as ex
 from ..ops import predicates as pr
 from ..ops.cast import Cast
@@ -204,6 +205,41 @@ class Aggregate(LogicalPlan):
                           for i, e in enumerate(self.aggregate_exprs)])
 
 
+class Join(LogicalPlan):
+    """Join of two plans on ``condition`` (None: a cross join). The output
+    is the left columns then the right ones; semi and anti joins output
+    the left columns only."""
+
+    JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+                  "cross")
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, how: str,
+                 condition: Optional[ex.Expression] = None):
+        super().__init__(left, right)
+        if how not in self.JOIN_TYPES:
+            raise ValueError(f"unknown join type {how!r}")
+        self.how = how
+        self.condition = condition
+
+    def expressions(self):
+        return [self.condition] if self.condition is not None else []
+
+    def _compute_schema(self) -> dt.Schema:
+        left, right = self.children[0].schema, self.children[1].schema
+        if self.how in ("left_semi", "left_anti"):
+            return left
+        fields = list(left.fields)
+        if self.how == "full":
+            fields = [dt.Field(f.name, f.dtype, True) for f in fields]
+        r_null = self.how in ("left", "full")
+        return dt.Schema(fields + [
+            dt.Field(f.name, f.dtype, True if r_null else f.nullable)
+            for f in right.fields])
+
+    def _node_string(self):
+        return f"Join {self.how} on={self.condition!r}"
+
+
 class Sort(LogicalPlan):
     """Global sort."""
 
@@ -284,9 +320,37 @@ def _coerce(e: ex.Expression) -> ex.Expression:
             c = node.children[0]
             if node.op in ("sum", "avg") and c.dtype == dt.BOOL:
                 return node.with_children([Cast(c, dt.INT32)])
+        if isinstance(node, (co.If, co.CaseWhen)):
+            return _coerce_branches(node)
         return None
 
     return e.transform(fn)
+
+
+def _coerce_branches(node):
+    """Cast the value branches of If/CaseWhen to one result type."""
+    n = len(node.children)
+    if isinstance(node, co.If):
+        positions = [1, 2]
+    else:
+        positions = [2 * i + 1 for i in range(node.num_branches)]
+        if node.has_else:
+            positions.append(n - 1)
+    dts = [node.children[i].dtype for i in positions
+           if node.children[i].dtype != dt.NULLTYPE]
+    if not dts:
+        return None
+    target = dts[0]
+    for t in dts[1:]:
+        if t != target:
+            target = dt.promote(target, t)
+    children = list(node.children)
+    changed = False
+    for i in positions:
+        if children[i].dtype != target:
+            children[i] = Cast(children[i], target)
+            changed = True
+    return node.with_children(children) if changed else None
 
 
 def analyze(plan: LogicalPlan) -> LogicalPlan:
@@ -317,6 +381,15 @@ def analyze(plan: LogicalPlan) -> LogicalPlan:
         plan.aggregate_exprs = [
             ra(e.transform_down(lambda n: ident.get(id(n))))
             for e in plan.aggregate_exprs]
+    elif isinstance(plan, Join):
+        if plan.condition is not None:
+            left, right = plan.children[0].schema, plan.children[1].schema
+            merged = dt.Schema(list(left.fields) + list(right.fields))
+            plan.condition = _coerce(_resolve_expr(plan.condition, merged))
+            if plan.condition.dtype != dt.BOOL:
+                raise AnalysisError(
+                    f"join condition must be boolean, got "
+                    f"{plan.condition.dtype}")
     elif isinstance(plan, Sort):
         plan.orders = [SortOrder(ra(o.child), o.ascending, o.nulls_first)
                        for o in plan.orders]

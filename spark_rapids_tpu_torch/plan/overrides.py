@@ -2,9 +2,10 @@
 
 Converts an analyzed logical plan into execs: scan, filter, project,
 aggregate (single partition, with the filter/project chain below it folded
-in), sort and limit, then inserts the batch-coalescing transitions. The
-port has no CPU engine yet, so anything else raises NotImplementedError
-naming the operator: nothing runs on the host in its place.
+in), equi-join (broadcast form), sort and limit, then inserts the
+batch-coalescing transitions. The port has no CPU engine yet, so anything
+else raises NotImplementedError naming the operator: nothing runs on the
+host in its place.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 
 from .. import config as cfg
 from ..ops import expressions as ex
+from ..ops import predicates as pr
+from ..shuffle.exchange import TpuBroadcastExchangeExec
 from . import logical as lp
 from . import physical as ph
 from . import stage_compiler as sc
@@ -47,6 +50,8 @@ class Overrides:
             return ph.TpuFilterExec(kids[0], p.condition)
         if isinstance(p, lp.Aggregate):
             return self._make_aggregate(p, kids[0])
+        if isinstance(p, lp.Join):
+            return self._convert_join(p, kids)
         if isinstance(p, lp.Sort):
             return ph.TpuSortExec(kids[0], p.orders)
         if isinstance(p, lp.Limit):
@@ -66,16 +71,71 @@ class Overrides:
         return ph.TpuHashAggregateExec(child, p.grouping, p.aggregate_exprs,
                                        pre_stage=pre_stage)
 
+    def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
+        """An equi-join in the broadcast form: the left side streams, the
+        right side is the build. The reference broadcasts only build sides
+        up to its threshold and hash-exchanges larger ones; on one
+        partition the exchange is the identity, so the broadcast form
+        computes the same rows."""
+        lk, rk, residual = _extract_equi_keys(
+            p.condition, p.children[0].schema.names(),
+            p.children[1].schema.names())
+        if not lk:
+            raise NotImplementedError(
+                f"{p.how} join without an equality key (a cross or "
+                "non-equi join) is not ported to the PyTorch engine yet")
+        left, right = kids
+        return ph.TpuSortMergeJoinExec(left, TpuBroadcastExchangeExec(right),
+                                       p.how, lk, rk, residual)
+
     def _insert_coalesce(self, node: ph.TpuExec) -> ph.TpuExec:
+        """Exchanges are exempt: they already emit one batch."""
         for i, child in enumerate(node.children):
             child = self._insert_coalesce(child)
             goal = node.children_coalesce_goal(i)
             if goal is not None and not isinstance(
-                    child, ph.TpuCoalesceBatchesExec):
+                    child, (ph.TpuCoalesceBatchesExec,
+                            TpuBroadcastExchangeExec)):
                 child = ph.TpuCoalesceBatchesExec(
                     child, goal=goal, target_rows=self.batch_rows)
             node.children[i] = child
         return node
+
+
+def _extract_equi_keys(cond, lnames, rnames):
+    """(left keys, right keys, residual): the conjuncts of ``cond`` that
+    equate an expression over the left columns with one over the right
+    columns, and the AND of the rest (None when there is none). A copy of
+    spark_rapids_tpu/cpu/engine.py:_extract_equi_keys."""
+    lkeys, rkeys = [], []
+    residual = None
+    if cond is None:
+        return lkeys, rkeys, None
+
+    def visit(e):
+        nonlocal residual
+        if isinstance(e, pr.And):
+            visit(e.children[0])
+            visit(e.children[1])
+            return
+        if isinstance(e, pr.EqualTo):
+            l, r = e.children
+            lrefs = {c.col_name for c in l.collect(
+                lambda x: isinstance(x, ex.ColumnRef))}
+            rrefs = {c.col_name for c in r.collect(
+                lambda x: isinstance(x, ex.ColumnRef))}
+            if lrefs <= set(lnames) and rrefs <= set(rnames):
+                lkeys.append(l)
+                rkeys.append(r)
+                return
+            if lrefs <= set(rnames) and rrefs <= set(lnames):
+                lkeys.append(r)
+                rkeys.append(l)
+                return
+        residual = e if residual is None else pr.And(residual, e)
+
+    visit(cond)
+    return lkeys, rkeys, residual
 
 
 def _walk(p: lp.LogicalPlan):

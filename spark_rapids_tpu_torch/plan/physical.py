@@ -8,14 +8,17 @@ folded filter/project chain as a live mask), merges of pending partials in
 fan-in groups, then the final merge and result projection. Its two routes
 are the reference's: grouping-free input takes the reduce route (K1 per
 aggregate); grouped input takes the sort route (K2 + stable sort, K3, K4).
-Partials are plain device tensors. Failures propagate: nothing falls back
-to another engine or device.
+Filters compact through K5. The equi-join (:class:`TpuSortMergeJoinExec`)
+sorts its build side once (K2), probes it per stream batch (K6) and
+expands the pairs (K7). Partials are plain device tensors. Failures
+propagate: nothing falls back to another engine or device.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict, Iterator, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Set
 
 import torch
 
@@ -24,6 +27,7 @@ from ..columnar.batch import ColumnarBatch, resolve_counts
 from ..columnar.column import Column, Scalar, bucket
 from ..ops import aggregates as agg_k
 from ..ops import expressions as ex
+from ..ops import joins as join_k
 from ..ops import kernels as K
 from . import logical as lp
 
@@ -108,45 +112,94 @@ class ScanCache:
     several queries read is on the device once. ``max_bytes`` caps the
     total. Entries go when their base table is garbage collected.
 
+    The columns one scan uploads share their batches' device buffers, so
+    they form one group: a group is cached, reused and evicted whole. When
+    a put does not fit, the least recently used groups holding no column
+    :meth:`pin`-ned by the running query are evicted until it does (the
+    reference spills cache entries instead; the port has no spill tier
+    yet); if that is not enough the put is refused.
+
     ``uploads`` counts the column batches scans had to upload, ``refused``
-    the puts that did not fit: a scan served from the cache bumps
-    neither."""
+    the puts that did not fit, ``evicted`` the column entries evicted: a
+    scan served from the cache bumps none of them."""
 
     def __init__(self, max_bytes: int = 6 << 30):
         self.max_bytes = max_bytes
         self.bytes = 0
         self.uploads = 0
         self.refused = 0
+        self.evicted = 0
         self._entries: Dict[tuple, List[Column]] = {}
+        # group id -> (its keys, its bytes), least recently used first
+        self._groups: "OrderedDict[int, tuple]" = OrderedDict()
+        self._group_of: Dict[tuple, int] = {}
+        self._next_group = 0
+        self._pinned: Set[tuple] = set()
         self._watched: set = set()
 
+    def pin(self, keys: Iterable[tuple]) -> None:
+        """The entries the running query reads: never evicted while it
+        runs. Replaces the previous pin set."""
+        self._pinned = set(keys)
+
     def get(self, key: tuple) -> Optional[List[Column]]:
-        return self._entries.get(key)
+        cols = self._entries.get(key)
+        if cols is not None:
+            self._groups.move_to_end(self._group_of[key])
+        return cols
 
     def put_all(self, entries: Dict[tuple, List[Column]],
                 table: lp.HostTable) -> bool:
-        """Cache every entry or none. The columns of one scan share their
-        upload's device buffer, so caching only some of them would keep
-        the whole buffer alive while counting part of it."""
+        """Cache every entry, as one group, or none."""
         size = sum(c.device_size_bytes() for cols in entries.values()
                    for c in cols)
         if any(k in self._entries for k in entries) or \
-                self.bytes + size > self.max_bytes:
+                not self._make_room(size):
             self.refused += 1
             return False
+        gid = self._next_group
+        self._next_group += 1
+        self._groups[gid] = (tuple(entries), size)
+        for k in entries:
+            self._group_of[k] = gid
         self._entries.update(entries)
         self.bytes += size
         tid = id(table)
         if tid not in self._watched:
             self._watched.add(tid)
-            weakref.finalize(table, self._evict, tid)
+            weakref.finalize(table, self._evict_table, tid)
         return True
 
-    def _evict(self, tid: int) -> None:
+    def _make_room(self, size: int) -> bool:
+        need = self.bytes + size - self.max_bytes
+        if need <= 0:
+            return True
+        victims, freed = [], 0
+        for gid, (keys, gsize) in self._groups.items():
+            if freed >= need:
+                break
+            if not self._pinned.intersection(keys):
+                victims.append(gid)
+                freed += gsize
+        if freed < need:
+            return False
+        for gid in victims:
+            self.evicted += len(self._groups[gid][0])
+            self._drop_group(gid)
+        return True
+
+    def _drop_group(self, gid: int) -> None:
+        keys, size = self._groups.pop(gid)
+        for k in keys:
+            del self._entries[k]
+            del self._group_of[k]
+        self.bytes -= size
+
+    def _evict_table(self, tid: int) -> None:
         self._watched.discard(tid)
-        for key in [k for k in self._entries if k[0] == tid]:
-            cols = self._entries.pop(key)
-            self.bytes -= sum(c.device_size_bytes() for c in cols)
+        for gid in [g for g, (keys, _) in self._groups.items()
+                    if keys[0][0] == tid]:
+            self._drop_group(gid)
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +233,14 @@ class TpuLocalScanExec(TpuExec):
     def execute(self) -> List[Partition]:
         return [self._part()]
 
+    def cache_keys(self) -> Dict[str, tuple]:
+        """The scan cache key of each column this scan reads."""
+        return {n: (id(self.table.base), n, self.batch_rows,
+                    str(self._device)) for n in self._schema.names()}
+
     def _part(self) -> Partition:
         names = self._schema.names()
-        keys = {n: (id(self.table.base), n, self.batch_rows,
-                    str(self._device)) for n in names}
+        keys = self.cache_keys()
         cached = {n: self.cache.get(keys[n]) for n in names} \
             if self.cache is not None else {}
         missing = [n for n in names if cached.get(n) is None]
@@ -236,8 +293,21 @@ class TpuProjectExec(TpuExec):
             yield ColumnarBatch(self._schema, cols, batch.num_rows_raw)
 
 
+def filter_batch(condition: ex.Expression, batch: ColumnarBatch
+                 ) -> Optional[ColumnarBatch]:
+    """The rows of ``batch`` where the bound ``condition`` holds, compacted
+    to the front through K5 (None when a constant condition drops them
+    all); the count stays on the device."""
+    pred = condition.eval(batch)
+    if isinstance(pred, Scalar):
+        return batch if pred.value is True else None
+    keep = pred.data & pred.validity & batch.row_mask_raw()
+    cols, count = K.compact_columns(batch.columns, keep)
+    return ColumnarBatch(batch.schema, cols, count)
+
+
 class TpuFilterExec(TpuExec):
-    """Filter by compaction; the count stays on the device."""
+    """Filter by compaction (K5); the count stays on the device."""
 
     def __init__(self, child: TpuExec, condition: ex.Expression):
         super().__init__(child)
@@ -253,14 +323,9 @@ class TpuFilterExec(TpuExec):
 
     def _map(self, part: Partition) -> Partition:
         for batch in part:
-            pred = self.condition.eval(batch)
-            if isinstance(pred, Scalar):
-                if pred.value is True:
-                    yield batch
-                continue
-            keep = pred.data & pred.validity & batch.row_mask_raw()
-            cols, count = K.compact_columns(batch.columns, keep)
-            yield ColumnarBatch(self._schema, cols, count)
+            out = filter_batch(self.condition, batch)
+            if out is not None:
+                yield out
 
 
 class TpuCoalesceBatchesExec(TpuExec):
@@ -499,6 +564,107 @@ class TpuHashAggregateExec(TpuExec):
         chain = f" pre_stage={self.pre_stage.describe()}" \
             if self.pre_stage is not None else ""
         return f"TpuHashAggregateExec[complete]{chain}"
+
+
+# ---------------------------------------------------------------------------
+# Join
+# ---------------------------------------------------------------------------
+
+class TpuSortMergeJoinExec(TpuExec):
+    """Equality join, broadcast form: the build side (the right child) is
+    one batch, sorted by its keys once per execution; each stream (left)
+    batch is probed against it (K6), and an inner join expands the pairs
+    (K7) at an output capacity sized by one device -> host read of the
+    pair count per stream batch. Semi and anti joins compact the stream
+    batch (K5). An inner join's residual condition is a post-filter (K5).
+    """
+
+    JOIN_TYPES = ("inner", "left_semi", "left_anti")
+
+    def __init__(self, left: TpuExec, right: TpuExec, how: str,
+                 left_keys: List[ex.Expression],
+                 right_keys: List[ex.Expression],
+                 condition: Optional[ex.Expression] = None):
+        super().__init__(left, right)
+        if how not in self.JOIN_TYPES:
+            raise NotImplementedError(
+                f"{how} join is not ported to the PyTorch engine yet")
+        if condition is not None and how != "inner":
+            raise NotImplementedError(
+                f"a residual condition on a {how} join is not ported to "
+                "the PyTorch engine yet")
+        self.how = how
+        self.left_keys = [bind_refs(e, left.schema) for e in left_keys]
+        self.right_keys = [bind_refs(e, right.schema) for e in right_keys]
+        if how in ("left_semi", "left_anti"):
+            self._out_schema = left.schema
+        else:
+            self._out_schema = dt.Schema(list(left.schema.fields) +
+                                         list(right.schema.fields))
+        self.condition = bind_refs(condition, self._out_schema) \
+            if condition is not None else None
+
+    @property
+    def schema(self):
+        return self._out_schema
+
+    def children_coalesce_goal(self, i: int):
+        # the stream side in target-size batches, the build side whole
+        return "target" if i == 0 else "single"
+
+    def execute(self) -> List[Partition]:
+        # the right child is a TpuBroadcastExchangeExec: the only join form
+        # the planner makes
+        build = self.children[1].materialize()
+        return [self._join_part(p, build)
+                for p in self.children[0].execute()]
+
+    def _join_part(self, part: Partition,
+                   build: ColumnarBatch) -> Partition:
+        bkeys = [ex.materialize(e.eval(build), build)
+                 for e in self.right_keys]
+        sorted_builds: Dict[tuple, join_k.BuildSide] = {}
+        try:
+            for batch in part:
+                skeys = [ex.materialize(e.eval(batch), batch)
+                         for e in self.left_keys]
+                # the build is sorted once per width of the string key
+                # pairs, normally once per execution
+                widths = join_k.pair_widths(bkeys, skeys)
+                side = sorted_builds.get(widths)
+                if side is None:
+                    side = sorted_builds[widths] = join_k.sort_build(
+                        join_k.widen_keys(bkeys, widths),
+                        build.num_rows_raw)
+                m = join_k.join_match(bkeys, build.num_rows_raw, skeys,
+                                      batch.num_rows_raw, batch.capacity,
+                                      build=side)
+                out = self._join_finish(build, batch, m)
+                if out is not None:
+                    yield out
+        finally:
+            self.children[1].release()
+
+    def _join_finish(self, build: ColumnarBatch, batch: ColumnarBatch,
+                     m: join_k.JoinMatch) -> Optional[ColumnarBatch]:
+        if self.how in ("left_semi", "left_anti"):
+            s_out, _b, cnt = join_k.join_gather(
+                m, batch.columns, build.columns, batch.capacity, self.how,
+                n_stream=batch.num_rows_raw)
+            return ColumnarBatch(self._out_schema, s_out, cnt)
+        total = int(m.total_pairs)      # the stream batch's one host read
+        s_out, b_out, _cnt = join_k.join_gather(
+            m, batch.columns, build.columns, bucket(max(total, 1)),
+            "inner", n_stream=batch.num_rows_raw)
+        out = ColumnarBatch(self._out_schema, s_out + b_out, total)
+        if self.condition is not None:
+            return filter_batch(self.condition, out)
+        return out
+
+    def _node_string(self):
+        cond = f" residual={self.condition!r}" \
+            if self.condition is not None else ""
+        return f"TpuSortMergeJoinExec[{self.how}]{cond}"
 
 
 # ---------------------------------------------------------------------------

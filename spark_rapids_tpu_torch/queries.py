@@ -1,5 +1,6 @@
-"""TPC-H q1 and q6 on the port's DataFrame API: the same expressions as
-benchmarks/queries.py (which builds them on the JAX package's API).
+"""TPC-H q1, q3, q4, q6 and q12 on the port's DataFrame API: the same
+expressions as benchmarks/queries.py (which builds them on the JAX
+package's API).
 
 Each takes the dict of DataFrames by table name and returns a DataFrame.
 Dates are DATE columns of int32 days since the epoch.
@@ -10,9 +11,10 @@ from __future__ import annotations
 from .api import functions as F
 from .api.functions import col, lit
 
-# 1994-01-01 / 1995-01-01 / 1998-09-02 as days since epoch
+# 1994-01-01 / 1995-01-01 / 1995-03-15 / 1998-09-02 as days since epoch
 _D_1994_01_01 = 8766
 _D_1995_01_01 = 9131
+_D_1995_03_15 = 9204
 _D_1998_09_02 = 10471
 
 
@@ -46,10 +48,60 @@ def q6(t):
                  .alias("revenue")))
 
 
-QUERIES = {"q1": q1, "q6": q6}
+def q3(t):
+    """Shipping priority: 3-way join + aggregate + top-N."""
+    c = t["customer"].filter(col("c_mktsegment") == lit("BUILDING"))
+    o = t["orders"].filter(col("o_orderdate") < lit(_D_1995_03_15))
+    l = t["lineitem"].filter(col("l_shipdate") > lit(_D_1995_03_15))
+    revenue = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (c.join(o, on=(col("c_custkey") == col("o_custkey")))
+            .join(l, on=(col("o_orderkey") == col("l_orderkey")))
+            .groupBy("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(revenue).alias("revenue"))
+            .orderBy(col("revenue").desc(), col("o_orderdate").asc())
+            .limit(10))
 
 
-def lineitem_schema(columns) -> dict:
-    """SQL types the numpy lineitem columns need beyond their numpy
-    dtypes: every ``*date`` column is a DATE."""
+def q12(t):
+    """Shipmode priority: join + conditional aggregation."""
+    l = t["lineitem"].filter(
+        col("l_shipmode").isin("MAIL", "SHIP") &
+        (col("l_commitdate") < col("l_receiptdate")) &
+        (col("l_shipdate") < col("l_commitdate")) &
+        (col("l_receiptdate") >= lit(_D_1994_01_01)) &
+        (col("l_receiptdate") < lit(_D_1995_01_01)))
+    o = t["orders"]
+    high = F.when(col("o_orderpriority").isin("1-URGENT", "2-HIGH"), lit(1)) \
+        .otherwise(lit(0))
+    low = F.when(~col("o_orderpriority").isin("1-URGENT", "2-HIGH"), lit(1)) \
+        .otherwise(lit(0))
+    return (o.join(l, on=(col("o_orderkey") == col("l_orderkey")))
+            .groupBy("l_shipmode")
+            .agg(F.sum(high).alias("high_line_count"),
+                 F.sum(low).alias("low_line_count"))
+            .orderBy("l_shipmode"))
+
+
+def q4(t):
+    """Order priority checking: EXISTS subquery -> left semi join."""
+    o = t["orders"].filter((col("o_orderdate") >= lit(_D_1994_01_01)) &
+                           (col("o_orderdate") < lit(_D_1994_01_01 + 91)))
+    l = t["lineitem"].filter(col("l_commitdate") < col("l_receiptdate"))
+    return (o.join(l, on=(col("o_orderkey") == col("l_orderkey")),
+                   how="left_semi")
+            .groupBy("o_orderpriority")
+            .agg(F.count("*").alias("order_count"))
+            .orderBy("o_orderpriority"))
+
+
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12}
+# the tables each query reads
+TABLES = {"q1": ("lineitem",), "q6": ("lineitem",),
+          "q3": ("customer", "orders", "lineitem"),
+          "q12": ("orders", "lineitem"), "q4": ("orders", "lineitem")}
+
+
+def table_schema(columns) -> dict:
+    """SQL types numpy TPC-H columns need beyond their numpy dtypes: every
+    ``*date`` column is a DATE."""
     return {name: "date" for name in columns if name.endswith("date")}

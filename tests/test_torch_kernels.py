@@ -165,6 +165,37 @@ def test_compaction_indices_match_jax(frac):
     assert int(count) == int(jcount)
 
 
+def _keep_mask(kind: str, rng) -> np.ndarray:
+    idx = np.arange(CAP)
+    if kind == "none":
+        return np.zeros(CAP, np.bool_)
+    if kind == "all":
+        return idx < N
+    if kind == "alternating":
+        return (idx % 2 == 1) & (idx < N)
+    return (rng.random(CAP) < 0.5) & (idx < N)
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "alternating", "random"])
+def test_compaction_and_compact_columns_match_jax_at_masks(kind):
+    """K5's twin: the permutation, the count and every compacted column."""
+    rng = np.random.default_rng(zlib.crc32(kind.encode()))
+    keep = _keep_mask(kind, rng)
+    jperm, jcount = JK.compaction_indices(keep)
+    perm, count = PK.compaction_indices(torch.from_numpy(keep))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    assert int(count) == int(jcount) == int(keep.sum())
+    jcols, pcols = zip(*[_pair(_values(rng, t, N), t, w)
+                         for t, w in (("string", 8), ("double", None),
+                                      ("bigint", None))])
+    jout, jn = JK.compact_columns(list(jcols), keep)
+    pout, pn = PK.compact_columns(list(pcols), torch.from_numpy(keep))
+    assert int(pn) == int(jn)
+    for jc, pc in zip(jout, pout):
+        for a, b in zip(jc.arrays(), pc.arrays()):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 def test_gather_slice_concat_match_jax():
     rng = np.random.default_rng(5)
     jc, pc = _pair(_values(rng, "string", N), "string", 8)
@@ -196,4 +227,6 @@ def test_wrappers_refuse_other_devices():
         PK.sort_key_lanes([PK.SortKey(col)], N, CAP)
     with pytest.raises(RuntimeError, match="unsupported device"):
         PK.segment_bounds([col], N, CAP)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        PK.compaction_indices(col.validity)
     assert native.counts() == {k: 0 for k in native.KERNELS}

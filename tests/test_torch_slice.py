@@ -1,9 +1,10 @@
-"""The PyTorch port's first slice end to end: TPC-H q6 and q1 through the
-port's TpuSession -> DataFrame -> planner -> execs on the CPU, against the
-JAX package's engine on the same lineitem data. Rows must be equal, floats
-within 1e-12 relative. Also: the port imports neither jax nor the JAX
-package, refuses to start without CUDA unless asked for the CPU, and
-fails loudly on operators it has not ported."""
+"""The PyTorch port's slices end to end: TPC-H q6, q1, q3, q12 and q4
+through the port's TpuSession -> DataFrame -> planner -> execs on the CPU,
+against the JAX package's engine on the same TPC-H data. Rows must be
+equal, floats within 1e-12 relative. Also: the port imports neither jax
+nor the JAX package, refuses to start without CUDA unless asked for the
+CPU, plans every join in the broadcast form, keeps warm runs in its scan
+cache, and fails loudly on operators it has not ported."""
 
 import os
 import subprocess
@@ -15,12 +16,14 @@ import torch
 
 from benchmarks import datagen
 from benchmarks import queries as jax_queries
+from spark_rapids_tpu.api import functions as JF
 from spark_rapids_tpu.api.session import TpuSession as JaxSession
 
 from spark_rapids_tpu_torch import queries as port_queries
 from spark_rapids_tpu_torch.api import functions as F
 from spark_rapids_tpu_torch.api.session import TpuSession
 from spark_rapids_tpu_torch.plan import physical as ph
+from spark_rapids_tpu_torch.shuffle.exchange import TpuBroadcastExchangeExec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SF = 0.001
@@ -40,12 +43,36 @@ def jax_rows(lineitem):
             for name in ("q1", "q6")}
 
 
+@pytest.fixture(scope="module")
+def tpch(lineitem):
+    return {"lineitem": lineitem, "orders": datagen.gen_orders(SF),
+            "customer": datagen.gen_customer(SF)}
+
+
+@pytest.fixture(scope="module")
+def jax_join_rows(tpch):
+    session = JaxSession.builder.config(
+        {"spark.rapids.tpu.sql.explain": "NONE"}).getOrCreate()
+    t = {name: session.createDataFrame(datagen.to_arrow(cols))
+         for name, cols in tpch.items()}
+    return {name: getattr(jax_queries, name)(t).collect()
+            for name in ("q3", "q12", "q4")}
+
+
 def _port_tables(data, **conf):
     session = TpuSession.builder.config(
         {"spark.rapids.torch.device": "cpu", **conf}).getOrCreate()
     df = session.createDataFrame(data,
-                                 schema=port_queries.lineitem_schema(data))
+                                 schema=port_queries.table_schema(data))
     return session, {"lineitem": df}
+
+
+def _port_tpch(tables, **conf):
+    session = TpuSession.builder.config(
+        {"spark.rapids.torch.device": "cpu", **conf}).getOrCreate()
+    return session, {name: session.createDataFrame(
+        cols, schema=port_queries.table_schema(cols))
+        for name, cols in tables.items()}
 
 
 def assert_rows_equal(got, want, rel=1e-12):
@@ -68,6 +95,109 @@ def test_query_matches_jax_engine(lineitem, jax_rows, query, batch_rows):
         lineitem, **{"spark.rapids.tpu.sql.reader.batchSizeRows": batch_rows})
     got = port_queries.QUERIES[query](t).collect()
     assert_rows_equal(got, jax_rows[query])
+
+
+@pytest.mark.parametrize("batch_rows", [1 << 20, 700])
+@pytest.mark.parametrize("query", ["q3", "q12", "q4"])
+def test_join_query_matches_jax_engine(tpch, jax_join_rows, query,
+                                       batch_rows):
+    """One scan batch per table, and many (several stream batches probe
+    one build, and the build is concatenated from many batches)."""
+    _session, t = _port_tpch(
+        tpch, **{"spark.rapids.tpu.sql.reader.batchSizeRows": batch_rows})
+    got = port_queries.QUERIES[query](t).collect()
+    assert len(got) == len(jax_join_rows[query]) > 0
+    assert_rows_equal(got, jax_join_rows[query])
+
+
+def _residual_on(F_):
+    """The order key AND a cross-side inequality (about half the key
+    matches of the TPC-H data pass it)."""
+    return (F_.col("o_orderkey") == F_.col("l_orderkey")) & \
+        (F_.col("o_orderdate") < F_.col("l_shipdate"))
+
+
+def _residual_join(F_, o, l):
+    """Orders x lineitem on ``_residual_on``, counted and summed by order
+    priority."""
+    return (o.join(l, on=_residual_on(F_)).groupBy("o_orderpriority")
+            .agg(F_.count("*").alias("n"),
+                 F_.sum("l_extendedprice").alias("s"))
+            .orderBy("o_orderpriority"))
+
+
+@pytest.fixture(scope="module")
+def jax_residual_rows(tpch):
+    session = JaxSession.builder.config(
+        {"spark.rapids.tpu.sql.explain": "NONE"}).getOrCreate()
+    t = {name: session.createDataFrame(datagen.to_arrow(tpch[name]))
+         for name in ("orders", "lineitem")}
+    return _residual_join(JF, t["orders"], t["lineitem"]).collect()
+
+
+@pytest.mark.parametrize("batch_rows", [1 << 20, 700])
+def test_inner_join_residual_condition_matches_jax_engine(
+        tpch, jax_residual_rows, batch_rows):
+    """The conjunct that is not an equality is a post-filter over the
+    joined pairs (bound over the left + right schema, compacted by K5)."""
+    session, t = _port_tpch(
+        tpch, **{"spark.rapids.tpu.sql.reader.batchSizeRows": batch_rows})
+    o, l = t["orders"], t["lineitem"]
+    got = _residual_join(F, o, l).collect()
+    assert_rows_equal(got, jax_residual_rows)
+    joins = _join_nodes(session.last_plan())
+    assert len(joins) == 1 and joins[0].condition is not None
+    # the residual removes pairs: fewer rows than the key matches alone
+    on = F.col("o_orderkey") == F.col("l_orderkey")
+    n_keys = o.join(l, on=on).agg(F.count("*")).collect()[0][0]
+    assert 0 < sum(r[1] for r in got) < n_keys
+    with pytest.raises(NotImplementedError, match="residual condition"):
+        o.join(l, on=_residual_on(F), how="left_semi").collect()
+
+
+def _join_nodes(plan):
+    out = [plan] if isinstance(plan, ph.TpuSortMergeJoinExec) else []
+    for c in plan.children:
+        out.extend(_join_nodes(c))
+    return out
+
+
+def test_q3_plans_two_broadcast_joins_over_filtered_scans(tpch):
+    session, t = _port_tpch(tpch)
+    port_queries.q3(t).collect_batch()
+    joins = _join_nodes(session.last_plan())
+    assert [j.how for j in joins] == ["inner", "inner"]
+    for j in joins:
+        stream, build = j.children
+        assert isinstance(stream, ph.TpuCoalesceBatchesExec) and \
+            stream.goal == "target"
+        assert isinstance(build, TpuBroadcastExchangeExec)
+        assert isinstance(build.children[0], ph.TpuFilterExec)
+        assert build._batch is None          # released after the query
+
+
+def test_scan_cache_evicts_least_recently_used_columns_of_other_queries(
+        tpch):
+    """Two tables whose columns together exceed the cap: each query's
+    cold run evicts the other's columns, every warm run is served from
+    the cache, and the evictions are counted."""
+    conf = {"spark.rapids.tpu.sql.reader.batchSizeRows": 2048}
+    sizes = {}
+    for name in ("q6", "q4"):           # q6 and q4 share no column
+        session, t = _port_tpch(tpch, **conf)
+        port_queries.QUERIES[name](t).collect()
+        sizes[name] = session.scan_cache.bytes
+    session, t = _port_tpch(tpch, **conf)
+    cache = session.scan_cache
+    cache.max_bytes = max(sizes.values()) + min(sizes.values()) // 2
+    for name in ("q6", "q4", "q6", "q4"):
+        query = port_queries.QUERIES[name]
+        cold = query(t).collect()
+        state = (cache.bytes, cache.uploads, cache.evicted)
+        assert cache.bytes <= cache.max_bytes
+        assert query(t).collect() == cold
+        assert (cache.bytes, cache.uploads, cache.evicted) == state
+    assert cache.evicted > 0 and cache.refused == 0
 
 
 def test_q1_plan_folds_the_filter_and_prunes_the_scan(lineitem):
@@ -153,12 +283,24 @@ def test_session_without_cuda_and_without_cpu_asked_raises(monkeypatch):
     assert s.device.type == "cpu"
 
 
-def test_unported_operators_fail_loudly(lineitem):
-    _session, t = _port_tables(lineitem)
-    l = t["lineitem"]
-    with pytest.raises(NotImplementedError, match="string comparison"):
-        l.filter(F.col("l_shipmode") == F.lit("MAIL")).agg(
-            F.count("*")).collect()
+def test_unported_operators_fail_loudly(tpch):
+    session, t = _port_tpch(tpch)
+    l, o = t["lineitem"], t["orders"]
+    on = F.col("o_orderkey") == F.col("l_orderkey")
+    for how in ("left", "full", "right"):
+        with pytest.raises(NotImplementedError, match=f"{how} join"):
+            o.join(l, on=on, how=how).collect()
+    with pytest.raises(NotImplementedError, match="cross join"):
+        o.join(l, how="cross").collect()
+    with pytest.raises(NotImplementedError, match="without an equality"):
+        o.join(l, on=F.col("o_orderdate") < F.col("l_shipdate")).collect()
+    with pytest.raises(NotImplementedError, match="column names"):
+        o.join(l, on="o_orderkey")
+    # the one join form the port plans: a broadcast build side
+    o.join(l, on=on).agg(F.count("*")).collect()
+    joins = _join_nodes(session.last_plan())
+    assert len(joins) == 1 and all(
+        isinstance(j.children[1], TpuBroadcastExchangeExec) for j in joins)
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         l.agg(F._agg("count", "l_orderkey", distinct=True)).collect()
     with pytest.raises(NotImplementedError, match="over strings"):

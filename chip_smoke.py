@@ -7,19 +7,26 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
      timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel (K1-K7) against its plain PyTorch twin on the card, at
+  3. each kernel (K1-K10) against its plain PyTorch twin on the card, at
      the main path's shapes and at edge cases, with the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
-     single PyTorch call computing the same function;
+     single PyTorch call computing the same function; K8-K10 are timed at
+     the headline's shape (64 M rows) and at one 2^20-row batch, and K10's
+     phase runs groupby_singleword on the card (no engine path calls it);
   4. the main path: TPC-H q6, q1, q3, q12 and q4 through TpuSession ->
      DataFrame -> collect on benchmarks/datagen.py lineitem, orders and
-     customer data at scale factor --sf, one cold and three hot runs each,
-     held to numpy oracles computed independently from the same arrays
-     (sort + searchsorted joins); the launch counters are zeroed just
-     before and read just after, and every kernel of each query's path
-     must have launched in its cold run; the warm runs must be served from
-     the device scan cache (no column uploaded or evicted, no cache entry
-     refused).
+     customer data at scale factor --sf, then the root bench.py's headline
+     (filter -> project -> dense-range group-by) over its 64 M rows, one
+     cold and three hot runs each, held to numpy oracles computed
+     independently from the same arrays (sort + searchsorted joins,
+     bincount sums); the launch counters are zeroed just before and read
+     just after, and every kernel of each query's path must have launched
+     in its cold run; the warm runs must be served from the device scan
+     cache (no column uploaded or evicted, no cache entry refused);
+     then, outside the counted run, the headline and q1 at update-window
+     depths 48, 8 and 1 (hot time and device peak at each);
+  5. the port bench's hand-built headline pipeline, once at 64 M rows,
+     validated against the numpy oracle.
 Then the kernel summary line, the card line and, last, the result line
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and no
 result line. Without a CUDA device, or without the repository beside it,
@@ -88,6 +95,20 @@ def sector_bytes(mask, elem_bytes: int) -> int:
     import torch
     idx = mask.nonzero().flatten()
     return 32 * int(torch.unique(idx * elem_bytes // 32).numel())
+
+
+def live_read_bytes(rows: int, live, key, cols) -> int:
+    """Bytes a one-int-key group-by pass (K8, K9) must read over ``rows``
+    rows: the live mask of every row; the key's and each value column's
+    validity, and their data where that is also valid, in the 32-byte
+    sectors that hold a live row. A column passed twice is read once."""
+    live = live[:rows]
+    total = rows + sector_bytes(live, 1) + sector_bytes(
+        live & key.validity[:rows], key.data.element_size())
+    for c in {id(c): c for c in cols}.values():
+        total += sector_bytes(live, 1) + sector_bytes(
+            live & c.validity[:rows], c.data.element_size())
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +665,399 @@ def check_k7(device, rng) -> dict:
     }
 
 
+# -- K8-K10: the dense-range and single-word group-by -------------------------
+
+HEADLINE_ROWS, HEADLINE_CAP = 64_000_000, 1 << 26
+KEY_TYPES = ("tinyint", "smallint", "int", "bigint", "boolean", "date",
+             "timestamp")
+SLOT_VALUE_TYPES = ("bigint", "int", "double", "float", "date", "boolean")
+
+
+def float_err(got, want, rel: float, what: str) -> float:
+    """Max |got - want| of two f64 tensors; NaN and inf must match exactly,
+    finite values within ``rel`` of the larger magnitude."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes differ")
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN positions differ")
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    if not torch.equal(got[~fin & ~torch.isnan(got)],
+                       want[~fin & ~torch.isnan(want)]):
+        raise AssertionError(f"{what}: infinities differ")
+    diff = (got - want).abs()[fin]
+    if diff.numel() == 0:
+        return 0.0
+    scale = torch.maximum(got.abs(), want.abs())[fin]
+    if bool((diff > rel * scale).any()):
+        raise AssertionError(f"{what}: float error {float(diff.max())} "
+                             f"beyond relative {rel}")
+    return float(diff.max())
+
+
+def key_column(rng, tname: str, cap: int, n: int, device, lo: int = -700,
+               span: int = 1000, null_frac: float = 0.1):
+    """Keys in [lo, lo + span) (0/1 for boolean), ``null_frac`` NULL."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    t = dt.of(tname)
+    if t == dt.BOOL:
+        vals = rng.integers(0, 2, n).astype(np.bool_)
+    else:
+        vals = (lo + rng.integers(0, span, n)).astype(t.numpy_dtype)
+    valid = rng.random(n) >= null_frac
+    return Column.from_numpy(vals, t, valid, capacity=cap, device=device)
+
+
+def _all_specs(A, cols):
+    specs = []
+    for col in cols:
+        for op in AGG_OPS:
+            if op == "count_star" or not _valid_spec(op, col.dtype.name):
+                continue
+            for ign in ((True, False) if op in ("first", "last")
+                        else (True,)):
+                specs.append(A.AggSpec(op, col, ign))
+    return [A.AggSpec("count_star", None)] + specs
+
+
+def k9_against_twin(A, specs, src, K_slots: int, num_rows, mask, cap: int,
+                    device, what: str) -> float:
+    """K9 and its twin on the same features: integer features exact, f64
+    sums within 1e-12 relative; then the assembled columns of every spec."""
+    feats = A._Features()
+    occ = feats.add("occ")
+    plans = [A._plan_spec(feats, s) for s in specs]
+    got = A.slot_features(feats.items, src, K_slots, num_rows, mask)
+    live = A._live_mask(cap, num_rows, mask, device)
+    want = A._slot_features_torch(feats.items, src, live, K_slots)
+    err = 0.0
+    for f, g, w in zip(feats.items, got, want):
+        if f.kind == "fsum":
+            err = max(err, float_err(g, w, 1e-12, f"{what} fsum"))
+        else:
+            tensor_err(g, w, f"{what} {f.kind}")
+    for s, p in zip(specs, plans):
+        column_err(A._assemble(s, p, got, occ, K_slots, False),
+                   A._assemble(s, p, want, occ, K_slots, False), 1e-12,
+                   f"{what} {s.op}({s.column.dtype.name if s.column else ''})")
+    return err
+
+
+def headline_batch(device):
+    """The headline's key and projected value columns and its live mask
+    (flag & v > 0 over its rows), from the root bench's data."""
+    import torch
+    from spark_rapids_tpu_torch import queries
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    n, cap = HEADLINE_ROWS, HEADLINE_CAP
+    keys, kv, vals, vv, flags = [torch.from_numpy(a).to(device)
+                                 for a in queries.build_inputs(n, cap)]
+    keep = (torch.arange(cap, device=device) < n) & flags & vv & (vals > 0)
+    return (Column(dt.INT64, keys, kv),
+            Column(dt.FLOAT64, vals * 2.0 + 1.0, vv), keep)
+
+
+def check_k8(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    cap = 1 << 20
+    n = cap - 555
+    checks = 0
+    floats = [make_column(rng, "double", cap, n, device),
+              make_column(rng, "float", cap, n, device)]
+    mask = (torch.rand(cap, device=device) < 0.6)
+    for tname in KEY_TYPES:
+        for case in ("rows", "mask", "device_count", "empty", "all_null",
+                     "negative"):
+            lo = -(1 << 40) if tname in ("bigint", "timestamp") else -700
+            if tname == "tinyint":
+                lo = -100
+            key = key_column(rng, tname, cap, n, device, lo=lo, span=120,
+                             null_frac=1.0 if case == "all_null" else 0.1)
+            num_rows = 0 if case == "empty" else n
+            if case == "device_count":
+                num_rows = torch.tensor(n - 3, device=device)
+            m = mask if case == "mask" else None
+            got = A.dense_key_stats(key, num_rows, m, floats)
+            want = A._dense_key_stats_torch(key, num_rows, m, floats)
+            for g, w, part in zip(got, want, ("rmin", "decision")):
+                if g.shape != w.shape or not torch.equal(
+                        g.view(torch.int64) if g.is_floating_point() else g,
+                        w.view(torch.int64) if w.is_floating_point() else w):
+                    raise AssertionError(f"K8 {tname} {case} {part}: "
+                                         f"{g.tolist()} vs {w.tolist()}")
+            checks += 1
+    # more float columns than one launch takes, and a repeated one
+    key = key_column(rng, "bigint", cap, n, device)
+    many = [make_column(rng, "double", cap, n, device) for _ in range(9)]
+    many.append(many[0])
+    got = A.dense_key_stats(key, n, None, many)[1]
+    want = A._dense_key_stats_torch(key, n, None, many)[1]
+    tensor_err(got.view(torch.int64), want.view(torch.int64),
+               "K8 ten float columns")
+    checks += 1
+    out = {"name": "dense_stats", "checks": checks, "max_abs_err": 0.0,
+           "tolerance": "exact (the same bits)"}
+    # timings: the headline (the session's update reads the live mask, the
+    # key and the one float column of SUM and AVG, with their validities;
+    # key and value only where the row is live) and one 2^20-row batch
+    kcol, proj, keep = headline_batch(device)
+    for tag, rows, kc, pc, kp in (
+            ("", HEADLINE_ROWS, kcol, proj, keep),
+            ("_2p20", 1 << 20) + tuple(
+                _prefix(c, 1 << 20) for c in (kcol, proj, keep))):
+        cap_t = kc.capacity
+        got = A.dense_key_stats(kc, rows, kp, [pc, pc])
+        want = A._dense_key_stats_torch(kc, rows, kp, [pc, pc])
+        tensor_err(got[0], want[0], f"K8 headline{tag} rmin")
+        tensor_err(got[1].view(torch.int64), want[1].view(torch.int64),
+                   f"K8 headline{tag} decision")
+        usable = kp & kc.validity
+        k0 = kc.data[int(usable.nonzero()[0])]
+        out.update({
+            f"ms{tag}": time_ms(lambda: A.dense_key_stats(kc, rows, kp,
+                                                          [pc, pc])),
+            f"plain_ms{tag}": time_ms(lambda: A._dense_key_stats_torch(
+                kc, rows, kp, [pc, pc]), iters=5),
+            f"library_ms{tag}": time_ms(lambda: torch.aminmax(
+                torch.where(usable, kc.data, k0))),
+            f"bound_ms{tag}": bound_ms(live_read_bytes(
+                min(rows, cap_t), kp, kc, [pc]) + 8 + 4 * 8),
+        })
+    out["checks"] += 2
+    return out
+
+
+def _prefix(obj, rows: int):
+    """The first ``rows`` rows of a column or mask, as their own arrays."""
+    from spark_rapids_tpu_torch.columnar.column import Column
+    if isinstance(obj, Column):
+        return Column(obj.dtype, obj.data[:rows].clone(),
+                      obj.validity[:rows].clone())
+    return obj[:rows].clone()
+
+
+def check_k9(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column, bucket
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    cap = 1 << 20
+    n = cap - 777
+    checks = 0
+    err = 0.0
+    vals = [make_column(rng, t, cap, n, device) for t in SLOT_VALUE_TYPES]
+    specs = _all_specs(A, vals)
+    mask = (torch.rand(cap, device=device) < 0.7) & \
+        (torch.arange(cap, device=device) < n)
+    # every key type, negative keys, NULL keys, a live mask, a device count
+    for tname in KEY_TYPES:
+        lo = -100 if tname == "tinyint" else -700
+        key = key_column(rng, tname, cap, n, device, lo=lo, span=120)
+        for case, num_rows, m in (("rows", n, None), ("mask", n, mask),
+                                  ("device_count",
+                                   torch.tensor(n - 9, device=device), None)):
+            rmin, dec = A.dense_key_stats(key, num_rows, m)
+            K_slots = bucket(int(dec[0]) + 2, 128)
+            src = ("key", key.data, key.validity, rmin)
+            err = max(err, k9_against_twin(A, specs, src, K_slots, num_rows,
+                                           m, cap, device,
+                                           f"K9 {tname} {case}"))
+            checks += 1
+    key = key_column(rng, "bigint", cap, n, device)
+    src = ("key", key.data, key.validity, torch.tensor(-700, device=device))
+    # empty input and all-NULL keys
+    err = max(err, k9_against_twin(A, specs, src, 1024, 0, None, cap,
+                                   device, "K9 empty"))
+    nul = Column(dt.INT64, key.data, torch.zeros_like(key.validity))
+    err = max(err, k9_against_twin(
+        A, specs, ("key", nul.data, nul.validity, src[3]), 128, n, None, cap,
+        device, "K9 all-NULL keys"))
+    checks += 2
+    # the widest spans: 4094 and 4095 key slots plus the NULL slot in 4096
+    for span in (4094, 4095):
+        key = key_column(rng, "int", cap, n, device, lo=-2000, span=span)
+        rmin, dec = A.dense_key_stats(key, n)
+        assert int(dec[0]) + 2 <= A.DENSE_MAX_SLOTS
+        err = max(err, k9_against_twin(
+            A, specs, ("key", key.data, key.validity, rmin), 4096, n, None,
+            cap, device, f"K9 {span} slots"))
+        checks += 1
+    # int64 sums that wrap, and a million-row hot slot
+    big = np.where(rng.random(n) < 0.5, 3 * 10 ** 18, -(3 * 10 ** 18) + 7)
+    wrap = Column.from_numpy(big, dt.INT64, capacity=cap, device=device)
+    hot = np.where(np.arange(n) < 1_000_000, 5, rng.integers(0, 300, n))
+    hkey = Column.from_numpy(hot, dt.INT64, capacity=cap, device=device)
+    hsrc = ("key", hkey.data, hkey.validity, torch.tensor(0, device=device))
+    err = max(err, k9_against_twin(A, [A.AggSpec("sum", wrap)] + specs, hsrc,
+                                   512, n, None, cap, device,
+                                   "K9 hot slot + wrapping sums"))
+    checks += 1
+    # the wrapped sums against numpy's int64 (mod 2^64) sums
+    got = A.groupby_dense(hkey, [A.AggSpec("sum", wrap)], n, 512,
+                          torch.tensor(0, device=device))
+    ng = int(got[2])
+    want = np.zeros(300, np.int64)
+    np.add.at(want, hot, big.astype(np.int64))
+    keys_got = got[0][0].data[:ng].cpu().numpy()
+    if not np.array_equal(got[1][0].data[:ng].cpu().numpy(), want[keys_got]):
+        raise AssertionError("K9 wrapping int64 sums differ from numpy")
+    checks += 1
+    # matmul-form sums over ids in any order (K4 needs runs: the reduce
+    # must not take this call to it)
+    ids = torch.from_numpy(rng.permutation(np.arange(cap) % 61).astype(
+        np.int32)).to(device)
+    live = torch.arange(cap, device=device) < n
+    for s in (A.AggSpec("count_star", None), A.AggSpec("count", vals[2]),
+              A.AggSpec("sum", vals[2]), A.AggSpec("avg", vals[3])):
+        got = A.segment_aggregate_matmul(s, ids, live, 64)
+        feats = A._Features()
+        occ = feats.add("occ")
+        plan = A._plan_spec(feats, s)
+        want = A._assemble(s, plan, A._slot_features_torch(
+            feats.items, ("ids", ids), live, 64), occ, 64, True)
+        column_err(got, want, 1e-12, f"K9 shuffled ids {s.op}")
+        checks += 1
+    # the headline: sums against numpy (sequential f64), determinism
+    kcol, proj, keep = headline_batch(device)
+    hspecs = [A.AggSpec("sum", proj), A.AggSpec("count", proj),
+              A.AggSpec("avg", proj)]
+    rmin, _dec = A.dense_key_stats(kcol, HEADLINE_ROWS, keep)
+    K_slots = 2048
+    a = A.groupby_dense(kcol, hspecs, HEADLINE_ROWS, K_slots, rmin, keep)
+    b = A.groupby_dense(kcol, hspecs, HEADLINE_ROWS, K_slots, rmin, keep)
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        if not torch.equal(x.data.view(torch.int64) if x.data.dtype ==
+                           torch.float64 else x.data,
+                           y.data.view(torch.int64) if y.data.dtype ==
+                           torch.float64 else y.data):
+            raise AssertionError("K9 differs between two runs on one input")
+    ng = int(a[2])
+    sel = keep.cpu().numpy()
+    kk = kcol.data.cpu().numpy()[sel]
+    pp = proj.data.cpu().numpy()[sel]
+    o_sum = np.bincount(kk, weights=pp, minlength=1024)
+    o_cnt = np.bincount(kk, minlength=1024)
+    gk = a[0][0].data[:ng].cpu().numpy()
+    if not np.array_equal(a[1][1].data[:ng].cpu().numpy(), o_cnt[gk]):
+        raise AssertionError("K9 headline counts differ from numpy")
+    hs = a[1][0].data[:ng].cpu().numpy()
+    rel = np.abs(hs - o_sum[gk]) / np.abs(o_sum[gk])
+    if not (rel <= 1e-12).all():
+        raise AssertionError(f"K9 headline sums: relative {rel.max()}")
+    checks += 3
+    out = {"name": "slot_aggregate", "checks": checks,
+           "max_abs_err": max(err, float(np.abs(hs - o_sum[gk]).max())),
+           "headline_sum_max_rel_err": float(rel.max()),
+           "tolerance": "integers exact; f64 sums relative 1e-12 of the twin "
+                        "and of numpy's sequential sums",
+           "deterministic": True}
+    # timings: the headline's features (occupancy, the count of p, the f64
+    # sum of p) over 64M rows and one 2^20-row batch; the library call is
+    # one index_add_ for the f64 feature
+    for tag, rows, kc, pc, kp in (
+            ("", HEADLINE_ROWS, kcol, proj, keep),
+            ("_2p20", 1 << 20) + tuple(
+                _prefix(c, 1 << 20) for c in (kcol, proj, keep))):
+        feats = [A.SlotFeature("occ"), A.SlotFeature("cnt", None,
+                                                     pc.validity),
+                 A.SlotFeature("fsum", pc.data, pc.validity)]
+        src = ("key", kc.data, kc.validity, rmin)
+        live = A._live_mask(kc.capacity, rows, kp, device)
+        seg = A._slot_ids_torch(src, live, K_slots)[0]
+        contrib = torch.where(live & pc.validity, pc.data, 0.0)
+        out.update({
+            f"ms{tag}": time_ms(lambda: A.slot_features(feats, src, K_slots,
+                                                        rows, kp)),
+            f"plain_ms{tag}": time_ms(lambda: A._slot_features_torch(
+                feats, src, live, K_slots), iters=5),
+            f"library_ms{tag}": time_ms(lambda: torch.zeros(
+                K_slots, dtype=torch.float64, device=device).index_add_(
+                    0, seg, contrib)),
+            f"bound_ms{tag}": bound_ms(live_read_bytes(
+                min(rows, kc.capacity), kp, kc, [pc]) + 3 * K_slots * 8),
+        })
+    return out
+
+
+def check_k10(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    cap = 1 << 20
+    n = cap - 333
+    checks = 0
+    mask = torch.rand(cap, device=device) < 0.8
+    for tname in KEY_TYPES:
+        for case in ("rows", "mask", "device_count", "empty", "all_null"):
+            lo = -100 if tname == "tinyint" else -3000
+            key = key_column(rng, tname, cap, n, device, lo=lo,
+                             span=120 if tname == "tinyint" else 4000,
+                             null_frac=1.0 if case == "all_null" else 0.1)
+            num_rows = 0 if case == "empty" else n
+            if case == "device_count":
+                num_rows = torch.tensor(n - 5, device=device)
+            m = mask if case == "mask" else None
+            uniq = torch.unique(key.data[key.validity].to(torch.int64))
+            uniq = uniq[::max(1, uniq.numel() // 4000)][:4096].contiguous()
+            nu = uniq.numel()
+            got = A.singleword_rank(key, uniq, num_rows, m, nu, nu + 1)
+            want = A._singleword_rank_torch(key, uniq, num_rows, m, nu,
+                                            nu + 1)
+            tensor_err(got, want, f"K10 {tname} {case}")
+            checks += 1
+    # groupby_singleword on the card at 2^20 rows: the phase that launches
+    # K10 (no engine path calls the single-word route)
+    key = key_column(rng, "bigint", cap, n, device, lo=-(1 << 40), span=3000)
+    val = make_column(rng, "double", cap, n, device, nan_frac=0.0)
+    before = native.counts()["singleword_rank"]
+    res = A.groupby_singleword(key, [A.AggSpec("count", val),
+                                     A.AggSpec("sum", val)], n, cap)
+    launches = native.counts()["singleword_rank"] - before
+    ks, ag, ng = res
+    kv = key.data[:n].cpu().numpy()
+    valid = key.validity[:n].cpu().numpy()
+    uk = np.unique(kv[valid])
+    if ng != len(uk) + 1 or not np.array_equal(
+            ks[0].data[:len(uk)].cpu().numpy(), uk):
+        raise AssertionError("K10 groupby_singleword keys differ from numpy")
+    vv = val.validity[:n].cpu().numpy()
+    cnt_v = np.bincount(np.searchsorted(uk, kv[valid & vv]),
+                        minlength=len(uk))
+    if not np.array_equal(ag[0].data[:len(uk)].cpu().numpy(), cnt_v):
+        raise AssertionError("K10 groupby_singleword counts differ")
+    checks += 2
+    uniq = torch.from_numpy(uk).to(device)
+    out = {"name": "singleword_rank", "checks": checks, "max_abs_err": 0.0,
+           "tolerance": "exact", "phase_launches": launches,
+           "groups": ng}
+    kcol, _proj, _keep = headline_batch(device)
+    huniq = torch.arange(1024, dtype=torch.int64, device=device)
+    for tag, rows, kc, uq in (("", HEADLINE_ROWS, kcol, huniq),
+                              ("_2p20", cap, key, uniq)):
+        got = A.singleword_rank(kc, uq, rows, None, uq.numel(), uq.numel())
+        lib = torch.searchsorted(uq, kc.data)
+        live = (torch.arange(kc.capacity, device=device) < rows) & \
+            kc.validity
+        if not torch.equal(got[live].to(torch.int64), lib[live]):
+            raise AssertionError("K10 disagrees with torch.searchsorted")
+        out.update({
+            f"ms{tag}": time_ms(lambda: A.singleword_rank(
+                kc, uq, rows, None, uq.numel(), uq.numel())),
+            f"plain_ms{tag}": time_ms(lambda: A._singleword_rank_torch(
+                kc, uq, rows, None, uq.numel(), uq.numel()), iters=3,
+                warmup=1),
+            f"library_ms{tag}": time_ms(lambda: torch.searchsorted(
+                uq, kc.data)),
+            # key and validity read, an int32 written per row
+            f"bound_ms{tag}": bound_ms(min(rows, kc.capacity) * 13 +
+                                       uq.numel() * 8),
+        })
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -751,7 +1165,22 @@ def oracle_q4(l, o):
     return [(str(k), int((prio == k).sum())) for k in np.unique(prio)]
 
 
+def oracle_headline(n: int):
+    """(key, sum, count, avg) per group of the headline over the first n
+    rows of the root bench's data; sums are numpy's sequential f64 sums."""
+    from spark_rapids_tpu_torch import queries
+    keys, _kv, vals, vv, flags = queries.build_inputs(n, n)
+    m = flags & vv & (vals > 0)
+    k = keys[m]
+    p = vals[m] * 2.0 + 1.0
+    cnt = np.bincount(k, minlength=queries.HEADLINE_KEYS)
+    sums = np.bincount(k, weights=p, minlength=queries.HEADLINE_KEYS)
+    return [(int(g), float(sums[g]), int(cnt[g]), float(sums[g] / cnt[g]))
+            for g in np.nonzero(cnt)[0]]
+
+
 PATH_KERNELS = {
+    "headline": ("dense_stats", "slot_aggregate", "compact_scan"),
     "q6": ("masked_reduce",),
     "q1": ("sort_key_lanes", "segment_bounds", "segment_reduce"),
     "q3": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
@@ -759,8 +1188,11 @@ PATH_KERNELS = {
     "q12": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
             "segment_bounds", "segment_reduce"),
     "q4": ("compact_scan", "sort_key_lanes", "join_probe", "segment_bounds",
-           "segment_reduce"),
+           "slot_aggregate", "segment_reduce"),
 }
+# launched by their own phase, not by the main path
+PHASE_KERNELS = {"singleword_rank": "check_k10: groupby_singleword at 2^20 "
+                 "rows (no engine path calls the single-word route)"}
 
 
 def run_query(name: str, tables, cache, oracle, n_rows: int, device
@@ -771,6 +1203,7 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     import torch
     from spark_rapids_tpu_torch import native, queries
     qfn = queries.QUERIES[name]
+    table = queries.TABLES[name][-1]
     before = native.counts()
     uploads = cache.uploads
     torch.cuda.synchronize()
@@ -779,6 +1212,8 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     rows = qfn(tables).collect()
     cold = time.perf_counter() - t0
     cold_launches = {k: v - before[k] for k, v in native.counts().items()}
+    if name == "headline":             # no ORDER BY: compare by key
+        rows = sorted(rows)
     check_rows(name, rows, oracle)
     cold_uploads = cache.uploads - uploads
     resident = (cache.bytes, cache.uploads, cache.evicted)
@@ -787,7 +1222,8 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
         t0 = time.perf_counter()
         hot_rows = qfn(tables).collect()
         hots.append(time.perf_counter() - t0)
-        check_rows(name, hot_rows, oracle)
+        check_rows(name, sorted(hot_rows) if name == "headline" else
+                   hot_rows, oracle)
     if cache.refused or (cache.bytes, cache.uploads, cache.evicted) != \
             resident:
         now = (cache.bytes, cache.uploads, cache.evicted)
@@ -799,19 +1235,34 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     if missing:
         raise AssertionError(f"{name} did not launch {missing}")
     n_batches = -(-n_rows // (1 << 20))
+    windows = [node.window for node in _plan_nodes(tables[table].session
+                                                   .last_plan())
+               if getattr(node, "window", None) is not None]
     return {
         "phase": "main", "query": name, "tables": queries.TABLES[name],
-        "lineitem_rows": n_rows, "lineitem_batches": n_batches,
+        f"{table}_rows": n_rows, f"{table}_batches": n_batches,
         "cold_s": cold, "hot_s": min(hots),
         "hot_rows_per_s": n_rows / min(hots),
         "launches_cold_run": cold_launches,
-        "launches_per_lineitem_batch": {
+        f"launches_per_{table}_batch": {
             k: v / n_batches for k, v in cold_launches.items()},
         "scan_column_batches_uploaded_cold": cold_uploads,
         "scan_cache_bytes": cache.bytes,
         "scan_cache_columns_evicted": cache.evicted,
         "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+        # the aggregates' update windows in the last hot run: batched
+        # stats reads, the values they carried, device -> host copies
+        "stats_windows_last_run": [
+            {"depth": w.depth, "reads": w.resolves,
+             "values": w.resolved_scalars, "copies": w.copies}
+            for w in windows],
         "result_rows": len(rows), "oracle": "numpy, relative 1e-9"}
+
+
+def _plan_nodes(node):
+    yield node
+    for c in node.children:
+        yield from _plan_nodes(c)
 
 
 def main_path(sf: float, device) -> tuple:
@@ -822,14 +1273,16 @@ def main_path(sf: float, device) -> tuple:
     t0 = time.perf_counter()
     data = {"lineitem": datagen.gen_lineitem(sf),
             "orders": datagen.gen_orders(sf),
-            "customer": datagen.gen_customer(sf)}
+            "customer": datagen.gen_customer(sf),
+            "headline": queries.headline_table(HEADLINE_ROWS)}
     gen_s = time.perf_counter() - t0
     l, o, c = data["lineitem"], data["orders"], data["customer"]
     n_rows = len(l["l_orderkey"])
     t0 = time.perf_counter()
     oracles = {"q6": [(oracle_q6(l),)], "q1": oracle_q1(l),
                "q3": oracle_q3(l, o, c), "q12": oracle_q12(l, o),
-               "q4": oracle_q4(l, o)}
+               "q4": oracle_q4(l, o),
+               "headline": oracle_headline(HEADLINE_ROWS)}
     oracle_s = time.perf_counter() - t0
     session = TpuSession.builder.config(
         {"spark.rapids.torch.device": str(device)}).getOrCreate()
@@ -839,11 +1292,66 @@ def main_path(sf: float, device) -> tuple:
     torch.cuda.reset_peak_memory_stats(device)
     native.reset_counts()
     lines = [run_query(name, tables, session.scan_cache, oracles[name],
-                       n_rows, device)
-             for name in ("q6", "q1", "q3", "q12", "q4")]
+                       HEADLINE_ROWS if name == "headline" else n_rows,
+                       device)
+             for name in ("q6", "q1", "q3", "q12", "q4", "headline")]
     launches = native.counts()
     peak = max(line["peak_device_bytes"] for line in lines)
-    return lines, launches, peak, gen_s, oracle_s
+    ab = window_depth_ab(session, tables, oracles, device)
+    return lines, launches, peak, gen_s, oracle_s, ab
+
+
+# update-window depths of the A/B, run in three passes (in order, reversed,
+# in order), so that drift of the host touches every depth alike
+WINDOW_DEPTHS = (48, 8, 1)
+WINDOW_ORDER = WINDOW_DEPTHS + WINDOW_DEPTHS[::-1] + WINDOW_DEPTHS
+
+
+def window_depth_ab(session, tables, oracles, device) -> dict:
+    """The headline and q1 at each update-window depth: after one warm-up
+    collect, the device peak is reset and five hot runs are timed and held
+    to the oracle. Launches do not depend on the depth (the window only
+    defers reads); time and peak bytes may."""
+    import torch
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch import native, queries
+    runs = {f"{q}_depth{d}": {"hot_s": [], "peak_device_bytes": [],
+                              "launches_per_run": []}
+            for q in ("headline", "q1") for d in WINDOW_DEPTHS}
+    cache = session.scan_cache
+    for depth in WINDOW_ORDER:
+        session.conf.set(cfg.AGG_PIPELINE_DEPTH.key, depth)
+        for name in ("headline", "q1"):
+            def run():
+                got = queries.QUERIES[name](tables).collect()
+                check_rows(name, sorted(got) if name == "headline" else got,
+                           oracles[name])
+            run()
+            uploads = cache.uploads
+            before = native.counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            hots = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run()
+                hots.append(time.perf_counter() - t0)
+            if cache.uploads != uploads:
+                raise AssertionError(f"window A/B: {name} hot runs at depth "
+                                     f"{depth} uploaded columns")
+            r = runs[f"{name}_depth{depth}"]
+            r["hot_s"].append(min(hots))
+            r["peak_device_bytes"].append(
+                torch.cuda.max_memory_allocated(device))
+            r["launches_per_run"].append({
+                k: (native.counts()[k] - before[k]) / len(hots)
+                for k in PATH_KERNELS[name]})
+    session.conf.set(cfg.AGG_PIPELINE_DEPTH.key,
+                     cfg.AGG_PIPELINE_DEPTH.default)
+    return {"phase": "window_depth_ab", "order": list(WINDOW_ORDER),
+            "runs": runs,
+            "note": "per depth and pass: min of 5 hot runs, the device peak "
+                    "over them and the path kernels' launches per run"}
 
 
 REPLACES = {
@@ -854,7 +1362,26 @@ REPLACES = {
     "compact_scan": "spark_rapids_tpu/ops/kernels.py:235",
     "join_probe": "spark_rapids_tpu/ops/joins.py:119",
     "join_expand": "spark_rapids_tpu/ops/joins.py:158",
+    "dense_stats": "spark_rapids_tpu/ops/aggregates.py:382",
+    "slot_aggregate": "spark_rapids_tpu/ops/aggregates.py:477",
+    "singleword_rank": "spark_rapids_tpu/ops/aggregates.py:723",
 }
+
+
+def bench_pipeline(device) -> dict:
+    """The port bench's hand-built headline pipeline, once, at 64 M rows
+    in a 2^26 capacity, validated as the bench validates it (against a
+    numpy oracle here: the card's machine may lack pandas)."""
+    from spark_rapids_tpu_torch import bench
+    rows_per_s, sample = bench.bench_gpu(HEADLINE_ROWS, HEADLINE_CAP,
+                                         device=device)
+    expected = {k: (s, c, a) for k, s, c, a in oracle_headline(HEADLINE_ROWS)}
+    groups = bench.validate(sample, expected)
+    return {"phase": "bench_pipeline", "rows": HEADLINE_ROWS,
+            "capacity": HEADLINE_CAP, "groups": groups,
+            "rows_per_s": rows_per_s,
+            "input_gb_per_s": rows_per_s * bench.BYTES_PER_ROW / 1e9,
+            "validated": "counts exact, sums and averages 1e-6 relative"}
 
 
 def main() -> int:
@@ -887,26 +1414,35 @@ def main() -> int:
     torch.manual_seed(args.seed)
     results = {}
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                  check_k6, check_k7):
+                  check_k6, check_k7, check_k8, check_k9, check_k10):
         r = check(device, rng)
         torch.cuda.synchronize()
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
 
-    lines, launches, peak, gen_s, oracle_s = main_path(args.sf, device)
+    lines, launches, peak, gen_s, oracle_s, ab = main_path(args.sf, device)
     for line in lines:
         emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
           "launches": launches})
-    unused = [k for k in native.KERNELS if launches[k] <= 0]
+    emit(ab)
+    unused = [k for k in native.KERNELS
+              if k not in PHASE_KERNELS and launches[k] <= 0]
     if unused:
         raise AssertionError(f"main path never launched {unused}")
+    for name in PHASE_KERNELS:
+        if results[name]["phase_launches"] <= 0:
+            raise AssertionError(f"its own phase never launched {name}")
+    emit(bench_pipeline(device))
 
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"spark_rapids_tpu_torch/csrc/{name}.cu",
         "replaces": REPLACES[name], "launches": launches[name],
+        **({"launched_by": PHASE_KERNELS[name],
+            "phase_launches": results[name]["phase_launches"]}
+           if name in PHASE_KERNELS else {}),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
         "bound_ms": results[name]["bound_ms"], "bound_by": "bytes",

@@ -5,8 +5,9 @@ spark_rapids_tpu/api/session.py.
 The session runs on one torch device, from ``spark.rapids.torch.device``
 (default ``"cuda"``). Asking for CUDA where there is none raises: the port
 never moves to the CPU by itself. The main path takes a dict of numpy
-arrays; pyarrow tables and pandas frames are accepted too, with pyarrow or
-pandas imported only for them.
+arrays (the masked entries of a masked array are NULL); pyarrow tables
+and pandas frames are accepted too, with pyarrow or pandas imported only
+for them.
 """
 
 from __future__ import annotations
@@ -142,6 +143,10 @@ def _columns_of(data) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
     if isinstance(data, dict):
         cols, validity = {}, {}
         for name, values in data.items():
+            if isinstance(values, np.ma.MaskedArray):   # masked = NULL
+                validity[name] = ~np.ma.getmaskarray(values)
+                cols[name] = values.filled(0)
+                continue
             arr = np.asarray(values)
             if arr.dtype.kind == "O" and any(v is None for v in arr) and \
                     not any(isinstance(v, (str, bytes)) for v in arr):

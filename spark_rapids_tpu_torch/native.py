@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
-           "segment_reduce", "compact_scan", "join_probe", "join_expand")
+           "segment_reduce", "compact_scan", "join_probe", "join_expand",
+           "dense_stats", "slot_aggregate", "singleword_rank")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -34,6 +35,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
 
 
 class KeyDesc(ctypes.Structure):
@@ -76,7 +79,33 @@ _SIGNATURES = {
         "join_expand": (_I, [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P]),
         "join_expand_scratch_bytes": (_L, [_L]),
     },
+    "dense_stats": {
+        "dense_stats": (_I, [_I, _P, _P, _P, _P, _L, _PP, _PP, _PI, _I, _P,
+                             _P, _P, _P]),
+        "dense_stats_scratch_bytes": (_L, [_L, _I]),
+        "dense_stats_max_float_cols": (_I, []),
+    },
+    "slot_aggregate": {
+        "slot_aggregate": (_I, [_P, _P, _P, _I, _P, _P, _P, _L, _I, _PP,
+                                _PP, _PI, _PI, _I, _I, _P, _P, _P, _P]),
+        "slot_aggregate_scratch_bytes": (_L, [_L, _I, _I, _I]),
+        "slot_aggregate_max_features": (_I, []),
+    },
+    "singleword_rank": {
+        "singleword_rank": (_I, [_I, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P,
+                                 _P]),
+    },
 }
+
+
+def pointers(values) -> ctypes.Array:
+    """A C array of pointers (None for NULL) to pass as ``void**``."""
+    return (ctypes.c_void_p * max(len(values), 1))(*values)
+
+
+def ints(values) -> ctypes.Array:
+    """A C array of ints to pass as ``int*``."""
+    return (ctypes.c_int * max(len(values), 1))(*values)
 
 
 def nvcc_path() -> str:

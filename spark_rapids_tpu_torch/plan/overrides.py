@@ -68,8 +68,10 @@ class Overrides:
                 "DISTINCT aggregates are not ported to the PyTorch engine "
                 "yet")
         child, pre_stage = sc.peel_for_aggregate(child)
-        return ph.TpuHashAggregateExec(child, p.grouping, p.aggregate_exprs,
-                                       pre_stage=pre_stage)
+        return ph.TpuHashAggregateExec(
+            child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
+            allow_matmul=cfg.matmul_agg_enabled(self.conf, self.device),
+            pipeline_depth=int(self.conf.get(cfg.AGG_PIPELINE_DEPTH)))
 
     def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
         """An equi-join in the broadcast form: the left side streams, the

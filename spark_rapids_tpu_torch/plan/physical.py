@@ -5,9 +5,12 @@ An exec's ``execute()`` returns a list of partitions, each an iterator of
 :class:`ColumnarBatch`. This slice runs one partition. The aggregate is
 the reference's ``complete`` mode: an update per input batch (with the
 folded filter/project chain as a live mask), merges of pending partials in
-fan-in groups, then the final merge and result projection. Its two routes
-are the reference's: grouping-free input takes the reduce route (K1 per
-aggregate); grouped input takes the sort route (K2 + stable sort, K3, K4).
+fan-in groups, then the final merge and result projection. Grouping-free
+input takes the reduce route (K1 per aggregate); grouped input goes
+through ops/aggregates.groupby_aggregate_fast, which picks the dense route
+(K8 stats, K9) or the sort route (K2 + stable sort, K3, then K4 or K9).
+Update batches ride a PipelineWindow: each batch's stats read lands with
+its half-window peers in one copy.
 Filters compact through K5. The equi-join (:class:`TpuSortMergeJoinExec`)
 sorts its build side once (K2), probes it per stream batch (K6) and
 expands the pairs (K7). Partials are plain device tensors. Failures
@@ -25,6 +28,7 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch, resolve_counts
 from ..columnar.column import Column, Scalar, bucket
+from ..exec.pipeline import PipelineWindow
 from ..ops import aggregates as agg_k
 from ..ops import expressions as ex
 from ..ops import joins as join_k
@@ -366,17 +370,26 @@ class TpuCoalesceBatchesExec(TpuExec):
 # ---------------------------------------------------------------------------
 
 class TpuHashAggregateExec(TpuExec):
-    """Sort-based group-by aggregate in ``complete`` mode: this node sees
-    every row of its groups. ``pre_stage`` is the filter/project chain the
-    planner folded into it (stage_compiler.StageChain)."""
+    """Group-by aggregate in ``complete`` mode: this node sees every row of
+    its groups. ``pre_stage`` is the filter/project chain the planner
+    folded into it (stage_compiler.StageChain). ``allow_matmul`` turns on
+    the K9 reductions (the dense route and the few-groups sort route);
+    ``pipeline_depth`` is the update window's depth."""
 
     # pending partials merge in groups of this many (one merge per batch
     # would run a merge aggregation per input batch)
     MERGE_FAN_IN = 8
 
     def __init__(self, child: TpuExec, grouping: List[ex.Expression],
-                 aggregate_exprs: List[ex.Expression], pre_stage=None):
+                 aggregate_exprs: List[ex.Expression], pre_stage=None,
+                 allow_matmul: bool = False, pipeline_depth: int = 8):
         super().__init__(child)
+        self.allow_matmul = allow_matmul
+        self.pipeline_depth = pipeline_depth
+        # groupby_aggregate_fast's memo: off once a key span rules the
+        # dense route out (key domains are stable across a stream)
+        self._dense_state: Dict[str, bool] = {}
+        self.window: Optional[PipelineWindow] = None   # the last stream's
         self.pre_stage = pre_stage
         self.grouping_src = grouping
         self.aggregate_exprs = aggregate_exprs
@@ -434,13 +447,48 @@ class TpuHashAggregateExec(TpuExec):
                 yield from p
         return [self._stream_merge(stream())]
 
+    def dense_candidate(self) -> bool:
+        """Whether an update batch may take the dense route: one integral
+        key and specs it supports (the reference's dense_cand)."""
+        sig = []
+        for leaf, bound in zip(self.leaves, self.bound_leaf_inputs):
+            t = bound.dtype if bound is not None else None
+            sig += [("sum", dt.FLOAT64), ("count", t)] \
+                if leaf.op == "avg" else [(leaf.op, t)]
+        return (self.allow_matmul and len(self.grouping) == 1 and
+                self._dense_state.get("enabled", True) and
+                agg_k.dense_key_type(self.grouping[0].dtype) and
+                all(agg_k.dense_op_supported(op, t) for op, t in sig))
+
     def _stream_merge(self, batches) -> Partition:
+        """Per-batch update, pending partials merged in fan-in groups. The
+        update is pipelined on a PipelineWindow: a batch's device half (the
+        dense route's K8 stats, or the sort route's sort and group finding)
+        runs at once and its stats vector is parked on the window; the host
+        half runs when the window lands it, its read batched with its
+        half-window peers."""
         pschema = self._partial_schema()
         pending: List[ColumnarBatch] = []
-        for batch in batches:
-            pending.append(self._update(batch))
+
+        def bank(pb: ColumnarBatch) -> None:
+            pending.append(pb)
             if len(pending) >= self.MERGE_FAN_IN:
-                pending = [self._merge(pending)]
+                pending[:] = [self._merge(pending)]
+
+        win = self.window = PipelineWindow(self.pipeline_depth)
+        for batch in batches:
+            if not self.grouping:
+                pb = self._update(batch)
+                ready = win.push(lambda p=pb: p)
+            else:
+                tok, stats = self._update_dispatch(batch)
+                ready = win.push(
+                    lambda v, t=tok, d=stats: self._update_finish(t, v, d),
+                    stats)
+            for pb in ready:
+                bank(pb)
+        for pb in win.flush():
+            bank(pb)
         if not pending:
             final_in = ColumnarBatch.empty(pschema, self.device)
         elif len(pending) == 1:
@@ -467,12 +515,34 @@ class TpuHashAggregateExec(TpuExec):
                         op, col, ignore_nulls=leaf.ignore_nulls))
         return keys, specs
 
-    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _pre_stage(self, batch: ColumnarBatch):
         mask = None
         if self.pre_stage is not None:
             batch, mask = self.pre_stage.eval(batch)
         keys, specs = self._build_update_specs(batch)
+        return batch, keys, specs, mask
+
+    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+        batch, keys, specs, mask = self._pre_stage(batch)
         return self._aggregate(keys, specs, batch, mask)
+
+    def _update_dispatch(self, batch: ColumnarBatch):
+        """Device half of a grouped update: (token, f64 stats vector)."""
+        batch, keys, specs, mask = self._pre_stage(batch)
+        return agg_k.groupby_fast_dispatch(
+            keys, specs, batch.num_rows_raw, batch.capacity,
+            allow_matmul=self.allow_matmul, dense_state=self._dense_state,
+            live_mask=mask)
+
+    def _update_finish(self, tok, stats, stats_dev) -> ColumnarBatch:
+        """Host half: the landed stats (None when the window's batched read
+        failed: read this batch's own)."""
+        if stats is None:
+            stats = stats_dev.cpu().numpy()
+        out_keys, aggs, n_groups = agg_k.groupby_fast_finish(tok, stats,
+                                                             shrink=True)
+        return ColumnarBatch(self._partial_schema(), out_keys + aggs,
+                             n_groups)
 
     def _aggregate(self, keys, specs, batch: ColumnarBatch,
                    mask: Optional[torch.Tensor]) -> ColumnarBatch:
@@ -483,9 +553,10 @@ class TpuHashAggregateExec(TpuExec):
             aggs = agg_k.reduce_aggregate(specs, batch.num_rows_raw, cap,
                                           live_mask=live)
             return ColumnarBatch(pschema, aggs, 1)
-        out_keys, aggs, n_groups = agg_k.groupby_aggregate(
-            keys, specs, batch.num_rows_raw, cap, live_mask=mask,
-            shrink=True)
+        out_keys, aggs, n_groups = agg_k.groupby_aggregate_fast(
+            keys, specs, batch.num_rows_raw, cap,
+            allow_matmul=self.allow_matmul, dense_state=self._dense_state,
+            live_mask=mask, shrink=True)
         return ColumnarBatch(pschema, out_keys + aggs, n_groups)
 
     # -- merge / final -----------------------------------------------------
@@ -563,7 +634,8 @@ class TpuHashAggregateExec(TpuExec):
     def _node_string(self):
         chain = f" pre_stage={self.pre_stage.describe()}" \
             if self.pre_stage is not None else ""
-        return f"TpuHashAggregateExec[complete]{chain}"
+        route = " dense-candidate" if self.dense_candidate() else ""
+        return f"TpuHashAggregateExec[complete]{route}{chain}"
 
 
 # ---------------------------------------------------------------------------

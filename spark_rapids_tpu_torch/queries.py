@@ -1,12 +1,16 @@
 """TPC-H q1, q3, q4, q6 and q12 on the port's DataFrame API: the same
 expressions as benchmarks/queries.py (which builds them on the JAX
-package's API).
+package's API), and ``headline``: the session form of the root bench.py's
+pipeline (filter -> project -> dense-range group-by) over its data
+(:func:`build_inputs`, :func:`headline_table`).
 
 Each takes the dict of DataFrames by table name and returns a DataFrame.
 Dates are DATE columns of int32 days since the epoch.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from .api import functions as F
 from .api.functions import col, lit
@@ -94,9 +98,49 @@ def q4(t):
             .orderBy("o_orderpriority"))
 
 
-QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12}
+HEADLINE_KEYS = 1024
+
+
+def build_inputs(n_rows: int, cap: int):
+    """The root bench.py's arrays (its build_inputs, seed 42): int64 keys
+    over HEADLINE_KEYS values, f64 values N(0, 10) with 5% NULL, a flag
+    that is 80% true; ``cap`` rows, the first ``n_rows`` live."""
+    rng = np.random.default_rng(42)
+    keys = np.zeros(cap, dtype=np.int64)
+    keys[:n_rows] = rng.integers(0, HEADLINE_KEYS, n_rows)
+    key_valid = np.zeros(cap, dtype=bool)
+    key_valid[:n_rows] = True
+    vals = np.zeros(cap, dtype=np.float64)
+    vals[:n_rows] = rng.normal(0, 10, n_rows)
+    val_valid = np.zeros(cap, dtype=bool)
+    val_valid[:n_rows] = rng.random(n_rows) < 0.95
+    flags = np.zeros(cap, dtype=bool)
+    flags[:n_rows] = rng.random(n_rows) < 0.8
+    return keys, key_valid, vals, val_valid, flags
+
+
+def headline_table(n_rows: int) -> dict:
+    """The headline's table (k, v with its NULLs, flag) as numpy columns
+    for ``createDataFrame``: the first ``n_rows`` of build_inputs."""
+    keys, _kv, vals, val_valid, flags = build_inputs(n_rows, n_rows)
+    return {"k": keys, "v": np.ma.masked_array(vals, mask=~val_valid),
+            "flag": flags}
+
+
+def headline(t):
+    """bench.py's headline: filter -> project -> group-by on one int64 key
+    spanning 1024 values (the dense-range route)."""
+    p = t["headline"].filter(col("flag") & (col("v") > lit(0.0))) \
+        .select(col("k"), (col("v") * lit(2.0) + lit(1.0)).alias("p"))
+    return p.groupBy("k").agg(F.sum("p").alias("sum_p"),
+                              F.count("p").alias("count_p"),
+                              F.avg("p").alias("avg_p"))
+
+
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12,
+           "headline": headline}
 # the tables each query reads
-TABLES = {"q1": ("lineitem",), "q6": ("lineitem",),
+TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q3": ("customer", "orders", "lineitem"),
           "q12": ("orders", "lineitem"), "q4": ("orders", "lineitem")}
 

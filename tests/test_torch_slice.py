@@ -303,8 +303,10 @@ def test_unported_operators_fail_loudly(tpch):
         isinstance(j.children[1], TpuBroadcastExchangeExec) for j in joins)
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         l.agg(F._agg("count", "l_orderkey", distinct=True)).collect()
-    with pytest.raises(NotImplementedError, match="over strings"):
-        l.agg(F.min("l_shipmode")).collect()
+    # string MIN/MAX are ported: what used to raise here now runs
+    modes = tpch["lineitem"]["l_shipmode"]
+    assert l.agg(F.min("l_shipmode"), F.max("l_shipmode")).collect() == \
+        [(min(modes), max(modes))]
 
 
 def test_select_withcolumn_limit_orderby(lineitem):
@@ -319,3 +321,67 @@ def test_select_withcolumn_limit_orderby(lineitem):
     assert [r[0] for r in rows] == [int(k) for k in
                                     lineitem["l_orderkey"][order]]
     assert isinstance(session.last_plan(), ph.TpuExec)
+
+
+# ---------------------------------------------------------------------------
+# bench.py's headline through both sessions
+# ---------------------------------------------------------------------------
+
+HEADLINE_ROWS = 12_000          # three 2^12-row scan batches
+_JAX_MATMUL_ENV = \
+    "SPARK_RAPIDS_TPU_CONF__SPARK__RAPIDS__TPU__SQL__AGG__MATMUL__ENABLED"
+
+
+def _jax_headline(monkeypatch, data):
+    """The headline on the JAX engine with its matmul (dense) route on. The
+    reference reads that key from a fresh TpuConf (physical.py:40), which
+    sees the environment's overrides, so the test sets both."""
+    import pyarrow as pa
+    monkeypatch.setenv(_JAX_MATMUL_ENV, "true")
+    session = JaxSession.builder.config({
+        "spark.rapids.tpu.sql.explain": "NONE",
+        "spark.rapids.tpu.sql.agg.matmul.enabled": "true",
+        "spark.rapids.tpu.sql.reader.batchSizeRows": 1 << 12}).getOrCreate()
+    v = data["v"]
+    df = session.createDataFrame(pa.table({
+        "k": data["k"], "v": pa.array(v.filled(0), mask=np.ma.getmaskarray(v)),
+        "flag": data["flag"]}))
+    p = df.filter(JF.col("flag") & (JF.col("v") > JF.lit(0.0))) \
+        .select(JF.col("k"), (JF.col("v") * JF.lit(2.0) +
+                              JF.lit(1.0)).alias("p"))
+    return sorted(p.groupBy("k").agg(JF.sum("p").alias("sum_p"),
+                                     JF.count("p").alias("count_p"),
+                                     JF.avg("p").alias("avg_p")).collect())
+
+
+def test_headline_matches_jax_engine_on_the_dense_route(monkeypatch):
+    """filter -> project -> dense group-by over three 2^12-row batches,
+    agg.matmul.enabled on both engines: keys and counts equal, sums and
+    averages within 1e-5 relative (the reference's dense route sums through
+    a hi/lo f32 split, aggregates.py:275). The port's updates, merges and
+    final all take the dense route."""
+    from spark_rapids_tpu_torch.ops import aggregates as agg_k
+    data = port_queries.headline_table(HEADLINE_ROWS)
+    want = _jax_headline(monkeypatch, data)
+    calls = []
+    dense = agg_k.groupby_dense
+    monkeypatch.setattr(agg_k, "groupby_dense",
+                        lambda *a, **k: calls.append(1) or dense(*a, **k))
+    session = TpuSession.builder.config({
+        "spark.rapids.torch.device": "cpu",
+        "spark.rapids.tpu.sql.agg.matmul.enabled": "true",
+        "spark.rapids.tpu.sql.reader.batchSizeRows": 1 << 12}).getOrCreate()
+    t = {"headline": session.createDataFrame(data)}
+    got = sorted(port_queries.headline(t).collect())
+    assert_rows_equal(got, want, rel=1e-5)
+    assert len(calls) == 3 + 1 + 1      # three updates, a merge, the final
+    plan = session.last_plan().tree_string()
+    assert "TpuHashAggregateExec[complete] dense-candidate " \
+           "pre_stage=filter->project[2]" in plan
+
+
+def test_headline_inputs_are_the_root_bench_inputs():
+    import bench
+    for a, b in zip(port_queries.build_inputs(3000, 4096),
+                    bench.build_inputs(3000, 4096)):
+        np.testing.assert_array_equal(a, b)

@@ -7,12 +7,14 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
      timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel (K1-K10) against its plain PyTorch twin on the card, at
+  3. each kernel (K1-K12) against its plain PyTorch twin on the card, at
      the main path's shapes and at edge cases, with the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
      single PyTorch call computing the same function; K8-K10 are timed at
      the headline's shape (64 M rows) and at one 2^20-row batch, and K10's
      phase runs groupby_singleword on the card (no engine path calls it);
+     K11 (murmur3) is also held to Spark's own hash values, K12
+     (partition_split) to a stable sort + bincount and to itself;
   4. the main path: TPC-H q6, q1, q3, q12 and q4 through TpuSession ->
      DataFrame -> collect on benchmarks/datagen.py lineitem, orders and
      customer data at scale factor --sf, then the root bench.py's headline
@@ -22,9 +24,12 @@ Phases, each printing one JSON line:
      bincount sums); the launch counters are zeroed just before and read
      just after, and every kernel of each query's path must have launched
      in its cold run; the warm runs must be served from the device scan
-     cache (no column uploaded or evicted, no cache entry refused);
+     cache (no column uploaded or evicted, no cache entry refused); q3,
+     q12 and q4 must run on the reference's shuffled plan (hash
+     exchanges, shuffled joins, a range exchange under the sort);
      then, outside the counted run, the headline and q1 at update-window
-     depths 48, 8 and 1 (hot time and device peak at each);
+     depths 48, 8 and 1 (hot time and device peak at each), and q3 and q4
+     in the shuffled and the broadcast join form (join_form_ab);
   5. the port bench's hand-built headline pipeline, once at 64 M rows,
      validated against the numpy oracle.
 Then the kernel summary line, the card line and, last, the result line
@@ -1058,6 +1063,197 @@ def check_k10(device, rng) -> dict:
     return out
 
 
+HASH_TYPES = ("tinyint", "smallint", "int", "bigint", "date", "timestamp",
+              "boolean", "float", "double", "string")
+# Spark's own values (tests/test_strings.py): hash(x) with seed 42
+SPARK_HASHES = (("int", 0, 933211791), ("int", 42, 29417773),
+                ("int", -1, -1604776387), ("bigint", 0, -1670924195),
+                ("bigint", 42, 1316951768), ("string", "", 142593372),
+                ("string", "abc", 1322437556))
+# NaN bit patterns: the canonical one, x86's 0.0/0.0 and a signalling one
+NAN_BITS = {"double": (0x7FF8000000000000, 0xFFF8000000000000,
+                       0x7FF0000000000001),
+            "float": (0x7FC00000, 0xFFC00000, 0x7F800001)}
+
+
+def hash_column(rng, tname: str, cap: int, n: int, device, width: int = 16):
+    """A key column of ``tname`` over n live rows: 10% NULL; floats with
+    -0.0, +-inf and NaN in the three bit patterns; strings of 0 to
+    ``width`` random bytes (any byte value, so tails hold bytes >= 0x80)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    t = dt.of(tname)
+    valid = rng.random(n) >= 0.1
+    if t == dt.STRING:
+        lens = rng.integers(0, width + 1, n).astype(np.int32)
+        data = rng.integers(0, 256, (n, width)).astype(np.uint8)
+        data[np.arange(width)[None, :] >= lens[:, None]] = 0
+        return Column(dt.STRING, *[torch.from_numpy(a).to(device) for a in (
+            np.pad(data * valid[:, None], ((0, cap - n), (0, 0))),
+            np.pad(valid, (0, cap - n)),
+            np.pad(lens * valid, (0, cap - n)))])
+    if t == dt.BOOL:
+        vals = rng.integers(0, 2, n).astype(np.bool_)
+    elif t.is_floating:
+        vals = rng.normal(0, 1e3, n).astype(t.numpy_dtype)
+        bits_t = np.uint64 if tname == "double" else np.uint32
+        special = np.concatenate([
+            np.array(NAN_BITS[tname], bits_t).view(t.numpy_dtype),
+            np.array([0.0, -0.0, np.inf, -np.inf], t.numpy_dtype)])
+        pick = rng.random(n) < 0.2
+        vals[pick] = special[rng.integers(0, len(special), int(pick.sum()))]
+    else:
+        info = np.iinfo(t.numpy_dtype)
+        vals = rng.integers(info.min, info.max, n, endpoint=True,
+                            dtype=t.numpy_dtype)
+    return Column.from_numpy(vals, t, valid, capacity=cap, device=device)
+
+
+def string_read_bytes(col, rows: int) -> int:
+    """Bytes a string-hashing pass must read: the 32-byte sectors holding a
+    byte inside some row's length, its lengths and its validity."""
+    import torch
+    w = int(col.data.shape[1])
+    lens = col.lengths[:rows].to(torch.int64) * col.validity[:rows]
+    if w <= 32:
+        rows_idx = torch.nonzero(lens > 0).flatten()
+        sectors = int(torch.unique(rows_idx * w // 32).numel())
+    else:
+        sectors = int(((lens + 31) // 32).sum())
+    return 32 * sectors + rows * 5
+
+
+def check_k11(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.ops import hashing as H
+    checks = 0
+
+    def both(cols, cap, seed, n_parts, rows, what):
+        got = H.murmur3(cols, cap, seed, n_parts, rows)
+        want = H._murmur3_torch(cols, cap, seed, n_parts, rows)
+        tensor_err(got[0], want[0], f"K11 hash {what}")
+        if n_parts:
+            tensor_err(got[1], want[1], f"K11 pid {what}")
+        return got[0]
+
+    for cap, n in ((128, 100), (5000, 4999), (1 << 20, (1 << 20) - 4321)):
+        cols = {t: hash_column(rng, t, cap, n, device) for t in HASH_TYPES}
+        cols["string8"] = hash_column(rng, "string", cap, n, device, 8)
+        for name, c in cols.items():
+            for n_parts in (0, 1, 3, 8, 200):
+                both([c], cap, 42, n_parts, n, f"{name} n={n_parts} "
+                     f"cap={cap}")
+                checks += 1
+        names = list(cols)
+        for k in (2, 3):
+            for _ in range(6):
+                pick = [names[i] for i in rng.choice(len(names), k)]
+                both([cols[x] for x in pick], cap, 42, 8,
+                     torch.tensor(n - 7, device=device),
+                     f"chain {pick} cap={cap}")
+                checks += 1
+        seeds = torch.from_numpy(rng.integers(-2**31, 2**31, cap,
+                                              dtype=np.int32)).to(device)
+        both([cols["string"]], cap, seeds, 0, n, f"per-row seeds cap={cap}")
+        checks += 1
+    for tname, value, want in SPARK_HASHES:
+        col = Column.from_numpy(np.array([value], dtype=object if
+                                         tname == "string" else None),
+                                dt.of(tname), device=device)
+        got = int(H.murmur3_batch([col], col.capacity)[0])
+        if got != want:
+            raise AssertionError(f"K11 hash({tname} {value!r}) = {got}, "
+                                 f"Spark {want}")
+        checks += 1
+    for tname, bits in NAN_BITS.items():
+        t = dt.of(tname)
+        vals = np.array(bits, np.uint64 if tname == "double"
+                        else np.uint32).view(t.numpy_dtype)
+        h = H.murmur3_batch([Column.from_numpy(vals, t, device=device)],
+                            128)[:3].tolist()
+        if len(set(h)) != 1 or (tname == "double" and h[0] != -1281358385):
+            raise AssertionError(f"K11 NaN {tname} hashes differ: {h}")
+        checks += 1
+    out = {"name": "murmur3", "checks": checks, "max_abs_err": 0.0,
+           "tolerance": "exact (hash and partition id, bit for bit; "
+                        "Spark's values)"}
+    # the main path's shapes: q3's int64 order key and q12's string ship
+    # mode over one 2^20-row batch into 8 partitions (the ids only)
+    cap = 1 << 20
+    rows = cap - 4321
+    okey = Column.from_numpy(rng.integers(1, 60_000_001, rows), dt.INT64,
+                             capacity=cap, device=device)
+    modes = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                      "TRUCK"])[rng.integers(0, 7, rows)]
+    smode = Column.from_numpy(modes, dt.STRING, capacity=cap, device=device)
+    for tag, col, read in (("", okey, rows * 9),
+                           ("_string", smode, string_read_bytes(smode, rows))):
+        both([col], cap, 42, 8, rows, f"main-path shape{tag}")
+        out.update({
+            f"ms{tag}": time_ms(lambda: H.murmur3([col], cap, 42, 8, rows,
+                                                  want_hash=False)),
+            f"plain_ms{tag}": time_ms(lambda: H._murmur3_torch(
+                [col], cap, 42, 8, rows)),
+            f"library_ms{tag}": None,
+            # the key read, a 4-byte id written per row
+            f"bound_ms{tag}": bound_ms(read + cap * 4)})
+    out["string_width"] = int(smode.data.shape[1])
+    out["library"] = "none: no PyTorch call computes murmur3"
+    return out
+
+
+def check_k12(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.shuffle import partitioning as P
+    checks = 0
+
+    def library(pids, rows, n):
+        live = torch.arange(pids.shape[0], device=pids.device) < rows
+        bins = torch.where(live, pids.to(torch.int64), n)
+        return (torch.sort(bins, stable=True)[1],
+                torch.bincount(bins, minlength=n + 1)[:n].to(torch.int32))
+
+    for cap in (128, 5000, 1 << 20):
+        for n in (1, 2, 3, 8, 200, 4096):
+            for case in ("random", "one_partition", "padding", "empty"):
+                if case == "one_partition":
+                    pids = torch.full((cap,), n // 2, dtype=torch.int32,
+                                      device=device)
+                else:
+                    pids = torch.randint(0, n, (cap,), dtype=torch.int32,
+                                         device=device)
+                rows = {"padding": cap - cap // 3, "empty": 0}.get(case, cap)
+                if case == "padding":     # ids past the rows are ignored
+                    pids[rows:] = -5
+                    rows = torch.tensor(rows, device=device)
+                got = P.partition_split(pids, rows, n)
+                again = P.partition_split(pids, rows, n)
+                want = P._partition_split_torch(pids, rows, n)
+                lib = library(torch.clamp(pids, 0, n), rows, n)
+                for g, a, w, l, what in zip(got, again, want, lib,
+                                            ("perm", "counts")):
+                    tag = f"K12 {what} {case} n={n} cap={cap}"
+                    tensor_err(g, w, tag)
+                    tensor_err(g, l, tag + " vs sort + bincount")
+                    tensor_err(g, a, tag + " (two calls)")
+                checks += 1
+    cap, n = 1 << 20, 8
+    rows = cap - 4321
+    pids = torch.randint(0, n, (cap,), dtype=torch.int32, device=device)
+    return {
+        "name": "partition_split", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (permutation and counts; deterministic)",
+        "ms": time_ms(lambda: P.partition_split(pids, rows, n)),
+        "plain_ms": time_ms(lambda: P._partition_split_torch(pids, rows, n)),
+        "library_ms": time_ms(lambda: library(pids, rows, n)),
+        # 4-byte ids read, the 8-byte permutation and the counts written
+        "bound_ms": bound_ms(cap * (4 + 8) + n * 4),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -1183,13 +1379,18 @@ PATH_KERNELS = {
     "headline": ("dense_stats", "slot_aggregate", "compact_scan"),
     "q6": ("masked_reduce",),
     "q1": ("sort_key_lanes", "segment_bounds", "segment_reduce"),
-    "q3": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
-           "segment_bounds", "segment_reduce"),
-    "q12": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
-            "segment_bounds", "segment_reduce"),
-    "q4": ("compact_scan", "sort_key_lanes", "join_probe", "segment_bounds",
-           "slot_aggregate", "segment_reduce"),
+    "q3": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
+           "join_probe", "join_expand", "segment_bounds", "segment_reduce"),
+    "q12": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
+            "join_probe", "join_expand", "segment_bounds", "segment_reduce"),
+    "q4": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
+           "join_probe", "segment_bounds", "slot_aggregate",
+           "segment_reduce"),
 }
+# the operators q3, q4 and q12 must run on at SF 10: the reference's
+# shuffled plan (their build sides are far above the 10 MiB threshold)
+SHUFFLED_OPERATORS = ("TpuShuffledJoinExec", "TpuHashExchangeExec",
+                      "TpuRangeExchangeExec")
 # launched by their own phase, not by the main path
 PHASE_KERNELS = {"singleword_rank": "check_k10: groupby_singleword at 2^20 "
                  "rows (no engine path calls the single-word route)"}
@@ -1235,8 +1436,13 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     if missing:
         raise AssertionError(f"{name} did not launch {missing}")
     n_batches = -(-n_rows // (1 << 20))
-    windows = [node.window for node in _plan_nodes(tables[table].session
-                                                   .last_plan())
+    plan = tables[table].session.last_plan()
+    operators = plan.operator_tree()
+    if name in ("q3", "q12", "q4"):
+        absent = [op for op in SHUFFLED_OPERATORS if op not in operators]
+        if absent:
+            raise AssertionError(f"{name}: plan lacks {absent}:\n{operators}")
+    windows = [(node.name, node.window) for node in _plan_nodes(plan)
                if getattr(node, "window", None) is not None]
     return {
         "phase": "main", "query": name, "tables": queries.TABLES[name],
@@ -1250,12 +1456,14 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
         "scan_cache_bytes": cache.bytes,
         "scan_cache_columns_evicted": cache.evicted,
         "peak_device_bytes": torch.cuda.max_memory_allocated(device),
-        # the aggregates' update windows in the last hot run: batched
-        # stats reads, the values they carried, device -> host copies
+        # the windows of the last hot run (an aggregate's update stats, an
+        # exchange's split counts: its last map partition's): batched
+        # reads, the values they carried, device -> host copies
         "stats_windows_last_run": [
-            {"depth": w.depth, "reads": w.resolves,
+            {"node": node, "depth": w.depth, "reads": w.resolves,
              "values": w.resolved_scalars, "copies": w.copies}
-            for w in windows],
+            for node, w in windows],
+        "plan": operators.splitlines(),
         "result_rows": len(rows), "oracle": "numpy, relative 1e-9"}
 
 
@@ -1298,7 +1506,58 @@ def main_path(sf: float, device) -> tuple:
     launches = native.counts()
     peak = max(line["peak_device_bytes"] for line in lines)
     ab = window_depth_ab(session, tables, oracles, device)
-    return lines, launches, peak, gen_s, oracle_s, ab
+    jf = join_form_ab(session, tables, oracles, device)
+    return lines, launches, peak, gen_s, oracle_s, ab, jf
+
+
+# q3 and q4 in the reference's shuffled form (the default at SF 10) and in
+# the broadcast form (every build broadcast), in turns
+JOIN_FORMS = {"shuffled": {}, "broadcast": {
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": 1 << 40}}
+JOIN_FORM_ORDER = ("shuffled", "broadcast", "broadcast", "shuffled")
+
+
+def join_form_ab(session, tables, oracles, device) -> dict:
+    """What the exchange costs: q3 and q4 in both join forms, in the order
+    shuffled, broadcast, broadcast, shuffled. Per form and pass: one
+    warm-up collect, the device peak reset, three hot runs held to the
+    oracle; the least hot time, the peak and K11/K12's launches a run."""
+    import torch
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch import native, queries
+    key = cfg.AUTO_BROADCAST_JOIN_THRESHOLD.key
+    runs = {f"{q}_{form}": {"hot_s": [], "peak_device_bytes": [],
+                            "launches_per_run": [], "plan": None}
+            for q in ("q3", "q4") for form in JOIN_FORMS}
+    for form in JOIN_FORM_ORDER:
+        session.conf.set(key, JOIN_FORMS[form].get(
+            key, cfg.AUTO_BROADCAST_JOIN_THRESHOLD.default))
+        for name in ("q3", "q4"):
+            def run():
+                check_rows(name, queries.QUERIES[name](tables).collect(),
+                           oracles[name])
+            run()
+            before = native.counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            hots = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                hots.append(time.perf_counter() - t0)
+            r = runs[f"{name}_{form}"]
+            r["hot_s"].append(min(hots))
+            r["peak_device_bytes"].append(
+                torch.cuda.max_memory_allocated(device))
+            r["launches_per_run"].append({
+                k: (native.counts()[k] - before[k]) / len(hots)
+                for k in ("murmur3", "partition_split")})
+            r["plan"] = session.last_plan().operator_tree().splitlines()
+    session.conf.set(key, cfg.AUTO_BROADCAST_JOIN_THRESHOLD.default)
+    return {"phase": "join_form_ab", "order": list(JOIN_FORM_ORDER),
+            "runs": runs,
+            "note": "per form and pass: min of 3 hot runs, the device peak "
+                    "over them, K11/K12 launches per run"}
 
 
 # update-window depths of the A/B, run in three passes (in order, reversed,
@@ -1365,6 +1624,8 @@ REPLACES = {
     "dense_stats": "spark_rapids_tpu/ops/aggregates.py:382",
     "slot_aggregate": "spark_rapids_tpu/ops/aggregates.py:477",
     "singleword_rank": "spark_rapids_tpu/ops/aggregates.py:723",
+    "murmur3": "spark_rapids_tpu/ops/hashing.py:123",
+    "partition_split": "spark_rapids_tpu/shuffle/partitioning.py:41",
 }
 
 
@@ -1414,19 +1675,22 @@ def main() -> int:
     torch.manual_seed(args.seed)
     results = {}
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                  check_k6, check_k7, check_k8, check_k9, check_k10):
+                  check_k6, check_k7, check_k8, check_k9, check_k10,
+                  check_k11, check_k12):
         r = check(device, rng)
         torch.cuda.synchronize()
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
 
-    lines, launches, peak, gen_s, oracle_s, ab = main_path(args.sf, device)
+    lines, launches, peak, gen_s, oracle_s, ab, jf = main_path(args.sf,
+                                                                device)
     for line in lines:
         emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
           "launches": launches})
     emit(ab)
+    emit(jf)
     unused = [k for k in native.KERNELS
               if k not in PHASE_KERNELS and launches[k] <= 0]
     if unused:

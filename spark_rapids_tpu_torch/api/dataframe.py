@@ -1,7 +1,7 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn, join, groupBy().agg, agg, orderBy, limit, collect and
-collect_batch."""
+select, withColumn, join, groupBy().agg, agg, orderBy, limit, repartition,
+coalesce, collect and collect_batch."""
 
 from __future__ import annotations
 
@@ -108,6 +108,15 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return self._df(lp.Limit(self._plan, n))
+
+    def repartition(self, n: int, *cols: ColumnOrName) -> "DataFrame":
+        """n partitions: hashed on ``cols`` (Spark's murmur3 placement),
+        round robin without them."""
+        by = [_to_expr(c) for c in cols] or None
+        return self._df(lp.Repartition(self._plan, n, by))
+
+    def coalesce(self, n: int) -> "DataFrame":
+        return self._df(lp.Repartition(self._plan, n))
 
     # -- actions ---------------------------------------------------------
     def collect_batch(self) -> ColumnarBatch:

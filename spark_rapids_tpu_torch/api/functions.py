@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Any
 
 from ..ops import expressions as ex
+from ..ops.hashing import Murmur3Hash
 from ..plan import logical as lp
 from .column import Col, WhenChain, _unwrap
 
@@ -55,3 +56,8 @@ def first(c, ignorenulls: bool = False) -> Col:
 
 def last(c, ignorenulls: bool = False) -> Col:
     return _agg("last", c, ignore_nulls=ignorenulls)
+
+
+def hash(*cols) -> Col:  # noqa: A001 - pyspark parity
+    """Spark's hash(...): Murmur3Hash of the columns, seed 42 (int32)."""
+    return Col(Murmur3Hash(*[_unwrap(c) for c in cols]))

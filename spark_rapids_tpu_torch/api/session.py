@@ -109,16 +109,21 @@ class TpuSession:
             return exec_plan.execute_collect()
         finally:
             self.scan_cache.pin(())
+            for node in _nodes(exec_plan):
+                node.release()
 
     def last_plan(self) -> Optional[ph.TpuExec]:
         return self._last_plan
 
 
-def _scans(node: ph.TpuExec):
-    if isinstance(node, ph.TpuLocalScanExec):
-        yield node
+def _nodes(node: ph.TpuExec):
+    yield node
     for c in node.children:
-        yield from _scans(c)
+        yield from _nodes(c)
+
+
+def _scans(node: ph.TpuExec):
+    return (n for n in _nodes(node) if isinstance(n, ph.TpuLocalScanExec))
 
 
 def _schema_types(schema: SchemaLike) -> Dict[str, dt.DType]:

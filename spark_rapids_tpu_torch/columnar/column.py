@@ -117,6 +117,21 @@ def encode_strings(values: np.ndarray, validity: Optional[np.ndarray] = None
     return mat, lens, valid
 
 
+def utf8_lengths(values: np.ndarray) -> np.ndarray:
+    """The UTF-8 byte length of each string (None: 0), without building
+    the byte matrix :func:`encode_strings` builds."""
+    values = np.asarray(values)
+    if values.dtype.kind == "U" and len(values):
+        codes = np.ascontiguousarray(values).view(np.uint32)
+        if int(codes.max(initial=0)) < 128:
+            return np.char.str_len(values).astype(np.int64)
+    if values.dtype.kind == "S":
+        return np.char.str_len(values).astype(np.int64)
+    return np.array([0 if v is None else len(
+        v if isinstance(v, bytes) else str(v).encode("utf-8"))
+        for v in values.tolist()], np.int64)
+
+
 def _is_string_array(values: np.ndarray) -> bool:
     return values.dtype.kind in ("U", "S", "O")
 

@@ -1,5 +1,5 @@
 """Configuration of the PyTorch port: the keys of spark_rapids_tpu/config.py
-that the main path reads, plus the device key.
+that the ported paths read, plus the device key.
 
 A small copy of the reference's typed registry (it imports no jax, but the
 port never imports the JAX package at all).
@@ -7,6 +7,7 @@ port never imports the JAX package at all).
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -50,6 +51,47 @@ AGG_PIPELINE_DEPTH = ConfEntry(
     "48 held ~3 GB more of q1's sort-route state than 8 and was no faster "
     "(chip_smoke.py's window_depth_ab).",
     8, int)
+
+
+SHUFFLE_PARTITIONS = ConfEntry(
+    "spark.rapids.tpu.sql.shuffle.partitions",
+    "Partitions of a hash exchange (the two sides of a shuffled join, the "
+    "partial -> final step of a grouped aggregate) and the most a range "
+    "exchange makes (ref: spark.sql.shuffle.partitions).",
+    8, int)
+
+SHUFFLE_PIPELINE_DEPTH = ConfEntry(
+    "spark.rapids.tpu.sql.shuffle.pipelineDepth",
+    "Map-side split batches in flight before the oldest batch's sizing "
+    "read lands: batch k + 1's split launches before batch k's counts are "
+    "read, and half a window's counts come back in one copy. 1 reads "
+    "every batch's counts as it comes.",
+    8, int)
+
+_BYTE_SUFFIXES = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20,
+                  "mb": 1 << 20, "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40,
+                  "tb": 1 << 40}
+
+
+def parse_bytes(value: Any) -> int:
+    """'10m', '2g', '1024', -1 -> a byte count (Spark's byte strings)."""
+    if isinstance(value, (int, float)):
+        return int(value)
+    m = re.fullmatch(r"(-?\d+(?:\.\d+)?)\s*([a-z]*)",
+                     str(value).strip().lower())
+    mult = _BYTE_SUFFIXES.get(m.group(2) or "b") if m else None
+    if mult is None:
+        raise ValueError(f"cannot parse byte value: {value!r}")
+    return int(float(m.group(1)) * mult)
+
+
+AUTO_BROADCAST_JOIN_THRESHOLD = ConfEntry(
+    "spark.rapids.tpu.sql.autoBroadcastJoinThreshold",
+    "Build sides at or under this many bytes (the table bytes below them, "
+    "counted as arrow counts them) are broadcast; larger builds "
+    "hash-exchange both sides into a shuffled join (ref: "
+    "spark.sql.autoBroadcastJoinThreshold). -1 turns broadcast off.",
+    10 * 1024 * 1024, parse_bytes)
 
 
 def matmul_agg_enabled(conf: "TorchConf", device) -> bool:

@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "segment_reduce", "compact_scan", "join_probe", "join_expand",
-           "dense_stats", "slot_aggregate", "singleword_rank")
+           "dense_stats", "slot_aggregate", "singleword_rank", "murmur3",
+           "partition_split")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -94,6 +95,15 @@ _SIGNATURES = {
     "singleword_rank": {
         "singleword_rank": (_I, [_I, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P,
                                  _P]),
+    },
+    "murmur3": {
+        "murmur3": (_I, [ctypes.POINTER(KeyDesc), _I, ctypes.c_uint, _P, _L,
+                         _P, _I, _P, _P, _P]),
+    },
+    "partition_split": {
+        "partition_split": (_I, [_P, _P, _L, _I, _P, _P, _P, _P]),
+        "partition_split_scratch_bytes": (_L, [_L, _I]),
+        "partition_split_max_parts": (_I, []),
     },
 }
 

@@ -1,6 +1,7 @@
 """Logical plan: the port of spark_rapids_tpu/plan/logical.py (scan, project,
-filter, aggregate, join, sort, limit) with its analysis: name resolution and
-the numeric/date coercions that insert implicit casts.
+filter, aggregate, join, sort, limit, repartition) with its analysis: name
+resolution and the numeric/date coercions that insert implicit casts, and
+the size estimate the join strategy reads (``stats_bytes``).
 
 The scan's data is a :class:`HostTable` of numpy columns; the port needs no
 pyarrow on the main path.
@@ -13,7 +14,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..columnar import dtypes as dt
-from ..columnar.column import Column
+from ..columnar.column import Column, utf8_lengths
 from ..ops import arithmetic as ar
 from ..ops import conditionals as co
 from ..ops import expressions as ex
@@ -36,6 +37,7 @@ class HostTable:
         self.schema = schema
         self.validity = validity or {}
         self.base = base if base is not None else self
+        self._col_bytes: Dict[str, int] = {}   # nbytes per column, on base
         lens = {len(v) for v in columns.values()}
         if len(lens) > 1:
             raise ValueError(f"columns of different lengths: {lens}")
@@ -46,6 +48,33 @@ class HostTable:
         return HostTable({n: self.columns[n] for n in names}, schema,
                          {n: v for n, v in self.validity.items()
                           if n in names}, base=self.base)
+
+    def nbytes(self) -> int:
+        """The table's bytes counted as arrow's ``Table.nbytes`` counts
+        them, so that both engines pick the same join strategy: data
+        (booleans as bits; strings as their UTF-8 bytes of the valid rows
+        plus 4 offset bytes a row) and a validity bitmap for a column
+        with NULLs."""
+        return sum(self._column_nbytes(f) for f in self.schema)
+
+    def _column_nbytes(self, f: dt.Field) -> int:
+        cache = self.base._col_bytes
+        if f.name not in cache:
+            values = self.columns[f.name]
+            n = len(values)
+            v = self.validity.get(f.name)
+            nulls = v is not None and not bool(np.all(v))
+            if f.dtype == dt.STRING:
+                lens = utf8_lengths(values)
+                if v is not None:
+                    lens = lens[np.asarray(v, np.bool_)]
+                size = 4 * n + int(lens.sum())
+            elif f.dtype == dt.BOOL:
+                size = (n + 7) // 8
+            else:
+                size = n * f.dtype.byte_width
+            cache[f.name] = size + ((n + 7) // 8 if nulls else 0)
+        return cache[f.name]
 
     def host_arrays(self, lo: int, rows: int, capacity: int):
         """Padded host arrays of rows [lo, lo + rows) for every column."""
@@ -129,6 +158,13 @@ class LogicalPlan:
     def expressions(self) -> List[ex.Expression]:
         return []
 
+    def stats_bytes(self) -> int:
+        """Size estimate for the join strategy: leaf sizes summed up the
+        tree (a filter keeps its input's size), as the reference's."""
+        if not self.children:
+            return 1 << 60          # unknown leaf: never broadcast
+        return sum(c.stats_bytes() for c in self.children)
+
     def __repr__(self):
         return self._tree_string(0)
 
@@ -157,6 +193,9 @@ class LocalScan(LogicalPlan):
 
     def _compute_schema(self) -> dt.Schema:
         return self.data.schema
+
+    def stats_bytes(self) -> int:
+        return self.data.nbytes()
 
     def _node_string(self):
         return f"LocalScan [{', '.join(self.schema.names())}]"
@@ -261,6 +300,26 @@ class Limit(LogicalPlan):
 
     def _compute_schema(self) -> dt.Schema:
         return self.children[0].schema
+
+
+class Repartition(LogicalPlan):
+    """repartition(n[, cols]) / coalesce(n): an exchange into n
+    partitions, hashed on ``by`` when given, else round robin."""
+
+    def __init__(self, child: LogicalPlan, num_partitions: int,
+                 by: Optional[List[ex.Expression]] = None):
+        super().__init__(child)
+        self.num_partitions = num_partitions
+        self.by = by
+
+    def expressions(self):
+        return self.by or []
+
+    def _compute_schema(self) -> dt.Schema:
+        return self.children[0].schema
+
+    def _node_string(self):
+        return f"Repartition {self.num_partitions} by={self.by}"
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +452,8 @@ def analyze(plan: LogicalPlan) -> LogicalPlan:
     elif isinstance(plan, Sort):
         plan.orders = [SortOrder(ra(o.child), o.ascending, o.nulls_first)
                        for o in plan.orders]
+    elif isinstance(plan, Repartition) and plan.by:
+        plan.by = [ra(e) for e in plan.by]
     plan._schema = None
     return plan
 

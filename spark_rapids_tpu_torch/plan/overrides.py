@@ -1,11 +1,15 @@
 """Planner: the port of the main-path rules of spark_rapids_tpu/plan/overrides.py.
 
 Converts an analyzed logical plan into execs: scan, filter, project,
-aggregate (single partition, with the filter/project chain below it folded
-in), equi-join (broadcast form), sort and limit, then inserts the
-batch-coalescing transitions. The port has no CPU engine yet, so anything
-else raises NotImplementedError naming the operator: nothing runs on the
-host in its place.
+aggregate (with the filter/project chain below it folded in; partial ->
+hash exchange -> final above more than one partition), equi-join
+(broadcast at or under ``autoBroadcastJoinThreshold``, else both sides
+hash-exchanged into a shuffled join), sort (a range exchange and local
+sorts above more than one partition), limit and repartition, then inserts
+the batch-coalescing transitions. These are the reference's plans without
+adaptive execution and without a device mesh. The port has no CPU engine
+yet, so anything else raises NotImplementedError naming the operator:
+nothing runs on the host in its place.
 """
 
 from __future__ import annotations
@@ -14,9 +18,12 @@ import copy
 from typing import Optional
 
 from .. import config as cfg
+from ..columnar import dtypes as dt
 from ..ops import expressions as ex
 from ..ops import predicates as pr
-from ..shuffle.exchange import TpuBroadcastExchangeExec
+from ..ops.cast import Cast
+from ..shuffle.exchange import (TpuBroadcastExchangeExec, TpuHashExchangeExec,
+                                TpuRangeExchangeExec, TpuShuffleExchangeExec)
 from . import logical as lp
 from . import physical as ph
 from . import stage_compiler as sc
@@ -32,6 +39,14 @@ class Overrides:
     @property
     def batch_rows(self) -> int:
         return int(self.conf.get(cfg.BATCH_ROWS))
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return int(self.conf.get(cfg.SHUFFLE_PARTITIONS))
+
+    @property
+    def split_depth(self) -> int:
+        return int(self.conf.get(cfg.SHUFFLE_PIPELINE_DEPTH))
 
     def apply(self, plan: lp.LogicalPlan) -> ph.TpuExec:
         plan = _prune_scan_columns(plan)
@@ -53,9 +68,21 @@ class Overrides:
         if isinstance(p, lp.Join):
             return self._convert_join(p, kids)
         if isinstance(p, lp.Sort):
+            if kids[0].output_partitions > 1:
+                # distributed sort: range-partition on sampled bounds, then
+                # sort each partition: partition order + local order =
+                # total order
+                n = min(self.shuffle_partitions,
+                        max(2, kids[0].output_partitions))
+                exch = TpuRangeExchangeExec(kids[0], n, p.orders,
+                                            split_depth=self.split_depth)
+                return ph.TpuSortExec(exch, p.orders, is_global=False)
             return ph.TpuSortExec(kids[0], p.orders)
         if isinstance(p, lp.Limit):
             return ph.TpuLimitExec(kids[0], p.n)
+        if isinstance(p, lp.Repartition):
+            return TpuShuffleExchangeExec(kids[0], p.num_partitions, p.by,
+                                          split_depth=self.split_depth)
         raise NotImplementedError(
             f"{p.name} is not ported to the PyTorch engine yet")
 
@@ -68,17 +95,34 @@ class Overrides:
                 "DISTINCT aggregates are not ported to the PyTorch engine "
                 "yet")
         child, pre_stage = sc.peel_for_aggregate(child)
-        return ph.TpuHashAggregateExec(
+        kw = dict(allow_matmul=cfg.matmul_agg_enabled(self.conf, self.device),
+                  pipeline_depth=int(self.conf.get(cfg.AGG_PIPELINE_DEPTH)))
+        if child.output_partitions <= 1:
+            return ph.TpuHashAggregateExec(
+                child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
+                **kw)
+        # partial (update) -> exchange on the keys -> final (merge) per
+        # exchange partition; a global aggregate meets on one partition
+        partial = ph.TpuHashAggregateExec(
             child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
-            allow_matmul=cfg.matmul_agg_enabled(self.conf, self.device),
-            pipeline_depth=int(self.conf.get(cfg.AGG_PIPELINE_DEPTH)))
+            mode="partial", **kw)
+        if p.grouping:
+            keys = [ex.ColumnRef(f"_k{i}") for i in range(len(p.grouping))]
+            exch = TpuHashExchangeExec(partial, self.shuffle_partitions, keys,
+                                       split_depth=self.split_depth)
+        else:
+            exch = TpuShuffleExchangeExec(partial, 1,
+                                          split_depth=self.split_depth)
+        return ph.TpuHashAggregateExec(exch, p.grouping, p.aggregate_exprs,
+                                       mode="final", per_partition_final=True,
+                                       **kw)
 
     def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
-        """An equi-join in the broadcast form: the left side streams, the
-        right side is the build. The reference broadcasts only build sides
-        up to its threshold and hash-exchanges larger ones; on one
-        partition the exchange is the identity, so the broadcast form
-        computes the same rows."""
+        """An equi-join: the left side streams, the right side is the
+        build. A build side whose size estimate is at or under
+        ``autoBroadcastJoinThreshold`` (-1: never) is broadcast; a larger
+        one hash-exchanges both sides into a co-partitioned shuffled
+        join."""
         lk, rk, residual = _extract_equi_keys(
             p.condition, p.children[0].schema.names(),
             p.children[1].schema.names())
@@ -87,16 +131,39 @@ class Overrides:
                 f"{p.how} join without an equality key (a cross or "
                 "non-equi join) is not ported to the PyTorch engine yet")
         left, right = kids
-        return ph.TpuSortMergeJoinExec(left, TpuBroadcastExchangeExec(right),
-                                       p.how, lk, rk, residual)
+        threshold = int(self.conf.get(cfg.AUTO_BROADCAST_JOIN_THRESHOLD))
+        if 0 <= threshold and p.children[1].stats_bytes() <= threshold:
+            return ph.TpuSortMergeJoinExec(
+                left, TpuBroadcastExchangeExec(right), p.how, lk, rk,
+                residual)
+        # murmur3 depends on the type: both sides hash one type per key.
+        # As in the reference, the first pair with no common numeric type
+        # ends the promotion; it and the pairs after it hash as they are.
+        pk_left, pk_right = list(lk), list(rk)
+        try:
+            for i, (a, b) in enumerate(zip(lk, rk)):
+                if a.dtype != b.dtype:
+                    t = dt.promote(a.dtype, b.dtype)
+                    pk_left[i] = a if a.dtype == t else Cast(a, t)
+                    pk_right[i] = b if b.dtype == t else Cast(b, t)
+        except ValueError:
+            pass
+        n = self.shuffle_partitions
+        return ph.TpuShuffledJoinExec(
+            TpuHashExchangeExec(left, n, pk_left,
+                                split_depth=self.split_depth),
+            TpuHashExchangeExec(right, n, pk_right,
+                                split_depth=self.split_depth),
+            p.how, lk, rk, residual)
 
     def _insert_coalesce(self, node: ph.TpuExec) -> ph.TpuExec:
-        """Exchanges are exempt: they already emit one batch."""
+        """Shuffle and broadcast exchanges are exempt: they already emit
+        one batch per partition."""
         for i, child in enumerate(node.children):
             child = self._insert_coalesce(child)
             goal = node.children_coalesce_goal(i)
             if goal is not None and not isinstance(
-                    child, (ph.TpuCoalesceBatchesExec,
+                    child, (ph.TpuCoalesceBatchesExec, TpuShuffleExchangeExec,
                             TpuBroadcastExchangeExec)):
                 child = ph.TpuCoalesceBatchesExec(
                     child, goal=goal, target_rows=self.batch_rows)

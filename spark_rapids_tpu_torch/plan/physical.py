@@ -2,19 +2,24 @@
 spark_rapids_tpu/plan/physical.py.
 
 An exec's ``execute()`` returns a list of partitions, each an iterator of
-:class:`ColumnarBatch`. This slice runs one partition. The aggregate is
-the reference's ``complete`` mode: an update per input batch (with the
-folded filter/project chain as a live mask), merges of pending partials in
-fan-in groups, then the final merge and result projection. Grouping-free
-input takes the reduce route (K1 per aggregate); grouped input goes
-through ops/aggregates.groupby_aggregate_fast, which picks the dense route
-(K8 stats, K9) or the sort route (K2 + stable sort, K3, then K4 or K9).
-Update batches ride a PipelineWindow: each batch's stats read lands with
-its half-window peers in one copy.
-Filters compact through K5. The equi-join (:class:`TpuSortMergeJoinExec`)
-sorts its build side once (K2), probes it per stream batch (K6) and
-expands the pairs (K7). Partials are plain device tensors. Failures
-propagate: nothing falls back to another engine or device.
+:class:`ColumnarBatch`; ``output_partitions`` says how many, with the
+reference's rules. A scan is one partition; exchanges
+(shuffle/exchange.py) make more. The aggregate runs in the reference's
+modes: ``complete`` (one node sees every row of its groups), ``partial``
+(per partition, below a hash exchange) and ``final`` (the merge and result
+projection, per partition above the exchange). A batch's update carries
+the folded filter/project chain as a live mask; pending partials merge in
+fan-in groups. Grouping-free input takes the reduce route (K1 per
+aggregate); grouped input goes through ops/aggregates.groupby_aggregate_fast,
+which picks the dense route (K8 stats, K9) or the sort route (K2 + stable
+sort, K3, then K4 or K9). Update batches ride a PipelineWindow: each
+batch's stats read lands with its half-window peers in one copy.
+Filters compact through K5. The equi-joins sort their build side once per
+partition (K2), probe it per stream batch (K6) and expand the pairs (K7):
+:class:`TpuSortMergeJoinExec` over a broadcast build,
+:class:`TpuShuffledJoinExec` over co-partitioned (hash-exchanged) sides.
+Partials are plain device tensors. Failures propagate: nothing falls back
+to another engine or device.
 """
 
 from __future__ import annotations
@@ -83,6 +88,12 @@ class TpuExec:
     def name(self) -> str:
         return type(self).__name__
 
+    @property
+    def output_partitions(self) -> int:
+        """How many partitions ``execute`` returns: the planner adds an
+        exchange where an operator needs its input partitioned."""
+        return self.children[0].output_partitions if self.children else 1
+
     def children_coalesce_goal(self, i: int):
         """None, "target" (concat small batches toward the batch size) or
         "single" (the whole partition in one batch)."""
@@ -90,6 +101,11 @@ class TpuExec:
 
     def execute(self) -> List[Partition]:
         raise NotImplementedError
+
+    def release(self) -> None:
+        """Drop device state held past ``execute`` (an exchange's pieces
+        no consumer read); the session calls it on every node once a
+        query ends."""
 
     def execute_collect(self) -> ColumnarBatch:
         """Every partition's rows in one device batch."""
@@ -101,6 +117,12 @@ class TpuExec:
         for c in self.children:
             out += "\n" + c.tree_string(depth + 1)
         return out
+
+    def operator_tree(self, depth: int = 0) -> str:
+        """The operators' names, one a line, two spaces a level: the form
+        of the JAX package's plan string, so two plans compare."""
+        return "\n".join(["  " * depth + self.name] +
+                         [c.operator_tree(depth + 1) for c in self.children])
 
     def _node_string(self) -> str:
         return self.name
@@ -370,10 +392,15 @@ class TpuCoalesceBatchesExec(TpuExec):
 # ---------------------------------------------------------------------------
 
 class TpuHashAggregateExec(TpuExec):
-    """Group-by aggregate in ``complete`` mode: this node sees every row of
-    its groups. ``pre_stage`` is the filter/project chain the planner
-    folded into it (stage_compiler.StageChain). ``allow_matmul`` turns on
-    the K9 reductions (the dense route and the few-groups sort route);
+    """Group-by aggregate. ``mode``: ``complete`` (every partition's rows
+    stream into one update/merge/final), ``partial`` (update and merge per
+    partition, output in the partial schema: keys ``_k{i}`` then each
+    leaf's update columns) or ``final`` (merge and result projection of
+    partial-schema input; ``per_partition_final`` when the input is hash
+    partitioned on the keys, so each partition holds whole groups).
+    ``pre_stage`` is the filter/project chain the planner folded into an
+    update (stage_compiler.StageChain). ``allow_matmul`` turns on the K9
+    reductions (the dense route and the few-groups sort route);
     ``pipeline_depth`` is the update window's depth."""
 
     # pending partials merge in groups of this many (one merge per batch
@@ -382,8 +409,11 @@ class TpuHashAggregateExec(TpuExec):
 
     def __init__(self, child: TpuExec, grouping: List[ex.Expression],
                  aggregate_exprs: List[ex.Expression], pre_stage=None,
-                 allow_matmul: bool = False, pipeline_depth: int = 8):
+                 allow_matmul: bool = False, pipeline_depth: int = 8,
+                 mode: str = "complete", per_partition_final: bool = False):
         super().__init__(child)
+        self.mode = mode
+        self.per_partition_final = per_partition_final
         self.allow_matmul = allow_matmul
         self.pipeline_depth = pipeline_depth
         # groupby_aggregate_fast's memo: off once a key span rules the
@@ -397,15 +427,23 @@ class TpuHashAggregateExec(TpuExec):
         for e in aggregate_exprs:
             self.leaves.extend(
                 e.collect(lambda x: isinstance(x, lp.AggregateExpression)))
-        in_schema = pre_stage.out_schema if pre_stage is not None \
-            else child.schema
-        self.grouping = [bind_refs(e, in_schema) for e in grouping]
-        self.bound_leaf_inputs = [
-            bind_refs(l.children[0], in_schema) if l.children else None
-            for l in self.leaves]
-        self._out_schema = dt.Schema([
-            dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
-            for i, e in enumerate(aggregate_exprs)])
+        if mode == "final":
+            # the child emits the partial schema: keys then update columns,
+            # by position (the original names do not exist below)
+            self.grouping = [ex.BoundReference(i, g.dtype, True)
+                             for i, g in enumerate(grouping)]
+            self.bound_leaf_inputs = [None] * len(self.leaves)
+        else:
+            in_schema = pre_stage.out_schema if pre_stage is not None \
+                else child.schema
+            self.grouping = [bind_refs(e, in_schema) for e in grouping]
+            self.bound_leaf_inputs = [
+                bind_refs(l.children[0], in_schema) if l.children else None
+                for l in self.leaves]
+        self._out_schema = self._partial_schema() if mode == "partial" \
+            else dt.Schema([dt.Field(ex.output_name(e, i), e.dtype,
+                                     e.nullable)
+                            for i, e in enumerate(aggregate_exprs)])
 
     def _partial_schema(self) -> dt.Schema:
         """Keys, then the update columns of each leaf."""
@@ -439,8 +477,16 @@ class TpuHashAggregateExec(TpuExec):
     def children_coalesce_goal(self, i: int):
         return "target"
 
+    @property
+    def output_partitions(self) -> int:
+        if self.mode == "partial" or self.per_partition_final:
+            return self.children[0].output_partitions
+        return 1
+
     def execute(self) -> List[Partition]:
         parts = self.children[0].execute()
+        if self.mode == "partial" or self.per_partition_final:
+            return [self._stream_merge(p) for p in parts]
 
         def stream():
             for p in parts:
@@ -450,6 +496,8 @@ class TpuHashAggregateExec(TpuExec):
     def dense_candidate(self) -> bool:
         """Whether an update batch may take the dense route: one integral
         key and specs it supports (the reference's dense_cand)."""
+        if self.mode == "final":
+            return False
         sig = []
         for leaf, bound in zip(self.leaves, self.bound_leaf_inputs):
             t = bound.dtype if bound is not None else None
@@ -461,12 +509,14 @@ class TpuHashAggregateExec(TpuExec):
                 all(agg_k.dense_op_supported(op, t) for op, t in sig))
 
     def _stream_merge(self, batches) -> Partition:
-        """Per-batch update, pending partials merged in fan-in groups. The
-        update is pipelined on a PipelineWindow: a batch's device half (the
-        dense route's K8 stats, or the sort route's sort and group finding)
-        runs at once and its stats vector is parked on the window; the host
-        half runs when the window lands it, its read batched with its
-        half-window peers."""
+        """Per-batch update (``final`` mode: the input batches are already
+        partials), pending partials merged in fan-in groups, then the final
+        merge and projection (``partial`` mode: the merged partial as it
+        is). The update is pipelined on a PipelineWindow: a batch's device
+        half (the dense route's K8 stats, or the sort route's sort and
+        group finding) runs at once and its stats vector is parked on the
+        window; the host half runs when the window lands it, its read
+        batched with its half-window peers."""
         pschema = self._partial_schema()
         pending: List[ColumnarBatch] = []
 
@@ -477,7 +527,9 @@ class TpuHashAggregateExec(TpuExec):
 
         win = self.window = PipelineWindow(self.pipeline_depth)
         for batch in batches:
-            if not self.grouping:
+            if self.mode == "final":
+                ready = win.push(lambda b=batch: b)
+            elif not self.grouping:
                 pb = self._update(batch)
                 ready = win.push(lambda p=pb: p)
             else:
@@ -495,7 +547,7 @@ class TpuHashAggregateExec(TpuExec):
             final_in = pending[0]
         else:
             final_in = self._merge(pending)
-        yield self._final(final_in)
+        yield final_in if self.mode == "partial" else self._final(final_in)
 
     # -- update (per input batch) -----------------------------------------
     def _build_update_specs(self, batch: ColumnarBatch):
@@ -635,7 +687,7 @@ class TpuHashAggregateExec(TpuExec):
         chain = f" pre_stage={self.pre_stage.describe()}" \
             if self.pre_stage is not None else ""
         route = " dense-candidate" if self.dense_candidate() else ""
-        return f"TpuHashAggregateExec[complete]{route}{chain}"
+        return f"TpuHashAggregateExec[{self.mode}]{route}{chain}"
 
 
 # ---------------------------------------------------------------------------
@@ -685,14 +737,15 @@ class TpuSortMergeJoinExec(TpuExec):
         return "target" if i == 0 else "single"
 
     def execute(self) -> List[Partition]:
-        # the right child is a TpuBroadcastExchangeExec: the only join form
-        # the planner makes
+        # the right child is a TpuBroadcastExchangeExec
         build = self.children[1].materialize()
-        return [self._join_part(p, build)
+        return [self._join_part(p, build, self.children[1].release)
                 for p in self.children[0].execute()]
 
-    def _join_part(self, part: Partition,
-                   build: ColumnarBatch) -> Partition:
+    def _join_part(self, part: Partition, build: ColumnarBatch,
+                   release=None) -> Partition:
+        """Join every stream batch of ``part`` with ``build``; ``release``
+        runs when the stream ends."""
         bkeys = [ex.materialize(e.eval(build), build)
                  for e in self.right_keys]
         sorted_builds: Dict[tuple, join_k.BuildSide] = {}
@@ -701,7 +754,7 @@ class TpuSortMergeJoinExec(TpuExec):
                 skeys = [ex.materialize(e.eval(batch), batch)
                          for e in self.left_keys]
                 # the build is sorted once per width of the string key
-                # pairs, normally once per execution
+                # pairs, normally once per partition
                 widths = join_k.pair_widths(bkeys, skeys)
                 side = sorted_builds.get(widths)
                 if side is None:
@@ -715,7 +768,8 @@ class TpuSortMergeJoinExec(TpuExec):
                 if out is not None:
                     yield out
         finally:
-            self.children[1].release()
+            if release is not None:
+                release()
 
     def _join_finish(self, build: ColumnarBatch, batch: ColumnarBatch,
                      m: join_k.JoinMatch) -> Optional[ColumnarBatch]:
@@ -736,7 +790,34 @@ class TpuSortMergeJoinExec(TpuExec):
     def _node_string(self):
         cond = f" residual={self.condition!r}" \
             if self.condition is not None else ""
-        return f"TpuSortMergeJoinExec[{self.how}]{cond}"
+        return f"{self.name}[{self.how}]{cond}"
+
+
+class TpuShuffledJoinExec(TpuSortMergeJoinExec):
+    """Co-partitioned equality join: both children hash-exchange on the
+    join keys into the same number of partitions, so stream partition i
+    joins build partition i only. Each build partition is one batch,
+    sorted once (K2) and probed by its stream partition's batches (K6,
+    K7). The build side is never whole on the device, one partition at a
+    time is. (The reference's runtime broadcast switch and skew split are
+    adaptive execution, not ported.)"""
+
+    def children_coalesce_goal(self, i: int):
+        return None          # both children are exchanges
+
+    def execute(self) -> List[Partition]:
+        lparts = self.children[0].execute()
+        rparts = self.children[1].execute()
+        if len(lparts) != len(rparts):
+            raise RuntimeError(f"co-partition mismatch: {len(lparts)} vs "
+                               f"{len(rparts)} partitions")
+        return [self._join_copart(sp, bp) for sp, bp in zip(lparts, rparts)]
+
+    def _join_copart(self, stream_part: Partition,
+                     build_part: Partition) -> Partition:
+        build = concat_batches(self.children[1].schema, list(build_part),
+                               self.device)
+        yield from self._join_part(stream_part, build)
 
 
 # ---------------------------------------------------------------------------
@@ -744,10 +825,15 @@ class TpuSortMergeJoinExec(TpuExec):
 # ---------------------------------------------------------------------------
 
 class TpuSortExec(TpuExec):
-    """Global sort of one partition (K2 lanes + stable torch.sort)."""
+    """Sort of each partition (K2 lanes + stable torch.sort). A global sort
+    has one partition below it, or a range exchange (then
+    ``is_global=False``: each partition's rows sort on their own, and the
+    partitions' order makes the total order)."""
 
-    def __init__(self, child: TpuExec, orders: List[lp.SortOrder]):
+    def __init__(self, child: TpuExec, orders: List[lp.SortOrder],
+                 is_global: bool = True):
         super().__init__(child)
+        self.is_global = is_global
         self.orders = [lp.SortOrder(bind_refs(o.child, child.schema),
                                     o.ascending, o.nulls_first)
                        for o in orders]
@@ -762,6 +848,9 @@ class TpuSortExec(TpuExec):
     def execute(self) -> List[Partition]:
         return [self._sort(p) for p in self.children[0].execute()]
 
+    def _node_string(self):
+        return self.name if self.is_global else f"{self.name}[local]"
+
     def _sort(self, part: Partition) -> Partition:
         batches = list(part)
         if not batches:
@@ -775,6 +864,9 @@ class TpuSortExec(TpuExec):
 
 
 class TpuLimitExec(TpuExec):
+    """The first ``n`` rows, taken across the child's partitions in order
+    (a global limit: one output partition)."""
+
     def __init__(self, child: TpuExec, n: int):
         super().__init__(child)
         self.n = n
@@ -783,18 +875,23 @@ class TpuLimitExec(TpuExec):
     def schema(self):
         return self.children[0].schema
 
-    def execute(self) -> List[Partition]:
-        return [self._local(p) for p in self.children[0].execute()]
+    @property
+    def output_partitions(self) -> int:
+        return 1
 
-    def _local(self, part: Partition) -> Partition:
+    def execute(self) -> List[Partition]:
+        return [self._take(self.children[0].execute())]
+
+    def _take(self, parts: List[Partition]) -> Partition:
         remaining = self.n
-        for b in part:
-            if remaining <= 0:
-                return
-            take = min(remaining, b.num_rows)
-            if take < b.num_rows:
-                cols = [K.rebucket_column(c, take, bucket(take))
-                        for c in b.columns]
-                b = ColumnarBatch(self.schema, cols, take)
-            remaining -= take
-            yield b
+        for part in parts:
+            for b in part:
+                if remaining <= 0:
+                    return
+                take = min(remaining, b.num_rows)
+                if take < b.num_rows:
+                    cols = [K.rebucket_column(c, take, bucket(take))
+                            for c in b.columns]
+                    b = ColumnarBatch(self.schema, cols, take)
+                remaining -= take
+                yield b

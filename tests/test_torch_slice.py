@@ -3,8 +3,10 @@ through the port's TpuSession -> DataFrame -> planner -> execs on the CPU,
 against the JAX package's engine on the same TPC-H data. Rows must be
 equal, floats within 1e-12 relative. Also: the port imports neither jax
 nor the JAX package, refuses to start without CUDA unless asked for the
-CPU, plans every join in the broadcast form, keeps warm runs in its scan
-cache, and fails loudly on operators it has not ported."""
+CPU, picks the JAX engine's join strategy (broadcast at or under
+autoBroadcastJoinThreshold, else the shuffled plan, operator for
+operator), keeps warm runs in its scan cache, and fails loudly on
+operators it has not ported."""
 
 import os
 import subprocess
@@ -108,6 +110,136 @@ def test_join_query_matches_jax_engine(tpch, jax_join_rows, query,
     got = port_queries.QUERIES[query](t).collect()
     assert len(got) == len(jax_join_rows[query]) > 0
     assert_rows_equal(got, jax_join_rows[query])
+
+
+# ---------------------------------------------------------------------------
+# The shuffled plans: hash exchanges, shuffled joins, partial -> final
+# aggregates and the range-partitioned sort
+# ---------------------------------------------------------------------------
+
+JOIN_QUERIES = ("q3", "q12", "q4")
+NO_BROADCAST = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1}
+
+
+def _jax_session(**conf):
+    return JaxSession.builder.config({
+        "spark.rapids.tpu.sql.explain": "NONE",
+        "spark.rapids.tpu.sql.adaptive.enabled": "false", **conf}
+    ).getOrCreate()
+
+
+def _jax_plan(session, df) -> str:
+    """The JAX engine's plan of ``df``, planned but not run."""
+    from spark_rapids_tpu.plan.overrides import Overrides
+    return str(Overrides(session.conf).apply(df._analyzed()))
+
+
+@pytest.fixture(scope="module")
+def jax_shuffled_rows(tpch):
+    """q3, q12 and q4 on the JAX engine's shuffled plan, 8 partitions."""
+    session = _jax_session(**NO_BROADCAST, **{
+        "spark.rapids.tpu.sql.shuffle.partitions": 8})
+    t = {name: session.createDataFrame(datagen.to_arrow(cols))
+         for name, cols in tpch.items()}
+    return {name: getattr(jax_queries, name)(t).collect()
+            for name in JOIN_QUERIES}
+
+
+@pytest.mark.parametrize("parts,batch_rows", [(8, 1 << 20), (3, 700)])
+@pytest.mark.parametrize("query", JOIN_QUERIES)
+def test_join_query_on_the_shuffled_plan_matches_jax_engine(
+        tpch, jax_shuffled_rows, query, parts, batch_rows):
+    """Broadcast off in both engines: the port's plan names the JAX
+    engine's operators in the same tree, and the rows equal the JAX
+    engine's shuffled run."""
+    conf = {**NO_BROADCAST, "spark.rapids.tpu.sql.shuffle.partitions": parts}
+    session, t = _port_tpch(tpch, **conf, **{
+        "spark.rapids.tpu.sql.reader.batchSizeRows": batch_rows})
+    got = port_queries.QUERIES[query](t).collect()
+    assert len(got) == len(jax_shuffled_rows[query]) > 0
+    assert_rows_equal(got, jax_shuffled_rows[query])
+    tree = session.last_plan().operator_tree()
+    js = _jax_session(**conf)
+    jt = {name: js.createDataFrame(datagen.to_arrow(cols))
+          for name, cols in tpch.items()}
+    assert tree == _jax_plan(js, getattr(jax_queries, query)(jt))
+    for op in ("TpuShuffledJoinExec", "TpuHashExchangeExec",
+               "TpuRangeExchangeExec"):
+        assert op in tree
+    assert "TpuBroadcastExchangeExec" not in tree
+    assert "TpuHashAggregateExec[partial]" in session.last_plan() \
+        .tree_string()
+
+
+def _build_sizes(plan, prune, join_cls):
+    """stats_bytes of every join's build side, after the scan pruning."""
+    out = []
+
+    def walk(p):
+        if isinstance(p, join_cls):
+            out.append(p.children[1].stats_bytes())
+        for c in p.children:
+            walk(c)
+    walk(prune(plan))
+    return out
+
+
+@pytest.mark.parametrize("query", JOIN_QUERIES)
+def test_both_engines_pick_the_same_join_strategy(tpch, query):
+    """Tiny tables broadcast at the default threshold in both engines; at
+    half the smallest build's size every join is shuffled in both. Both
+    count a build's bytes as arrow does."""
+    from spark_rapids_tpu.plan import logical as jlp
+    from spark_rapids_tpu.plan.overrides import \
+        _prune_scan_columns as jax_prune
+    from spark_rapids_tpu_torch.plan import logical as plp
+    from spark_rapids_tpu_torch.plan.overrides import \
+        _prune_scan_columns as port_prune
+    js = _jax_session()
+    jt = {name: js.createDataFrame(datagen.to_arrow(cols))
+          for name, cols in tpch.items()}
+    session, t = _port_tpch(tpch)
+    pdf = port_queries.QUERIES[query](t)
+    jdf = getattr(jax_queries, query)(jt)
+    sizes = _build_sizes(pdf._analyzed(), port_prune, plp.Join)
+    assert sizes == _build_sizes(jdf._analyzed(), jax_prune, jlp.Join)
+    assert max(sizes) <= 10 << 20
+    tree = session.plan(pdf._analyzed()).operator_tree()
+    assert tree == _jax_plan(js, jdf)
+    assert "TpuBroadcastExchangeExec" in tree and "Shuffled" not in tree
+    half = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold":
+            min(sizes) // 2}
+    js = _jax_session(**half)
+    jt = {name: js.createDataFrame(datagen.to_arrow(cols))
+          for name, cols in tpch.items()}
+    session, t = _port_tpch(tpch, **half)
+    tree = session.plan(
+        port_queries.QUERIES[query](t)._analyzed()).operator_tree()
+    assert tree == _jax_plan(js, getattr(jax_queries, query)(jt))
+    assert "TpuShuffledJoinExec" in tree and "Broadcast" not in tree
+
+
+def test_scan_size_estimate_counts_bytes_as_arrow_does():
+    import pyarrow as pa
+    rng = np.random.default_rng(8)
+    n = 1000
+    s = np.array(["", "a", "héllo", "TRUCK"], dtype=object)[
+        rng.integers(0, 4, n)]
+    s[::17] = None
+    v = np.ma.masked_array(rng.normal(size=n), mask=rng.random(n) < 0.1)
+    data = {"i": rng.integers(0, 9, n), "b": rng.random(n) < 0.5,
+            "d": rng.integers(0, 9, n).astype(np.int32), "s": s, "v": v}
+    session = TpuSession.builder.config(
+        "spark.rapids.torch.device", "cpu").getOrCreate()
+    df = session.createDataFrame(data, schema={"d": "date"})
+    arrow = pa.table({"i": data["i"], "b": data["b"],
+                      "d": pa.array(data["d"], pa.date32()),
+                      "s": pa.array(list(s)),
+                      "v": pa.array(v.filled(0), mask=np.ma.getmaskarray(v))})
+    assert df._plan.stats_bytes() == arrow.nbytes
+    for cols in (["i"], ["b", "s"], ["d", "v"]):
+        assert df._plan.data.select(cols).nbytes() == \
+            arrow.select(cols).nbytes
 
 
 def _residual_on(F_):

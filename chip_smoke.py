@@ -7,17 +7,25 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
      timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel (K1-K12) against its plain PyTorch twin on the card, at
-     the main path's shapes and at edge cases, with the stated tolerance,
+  3. each kernel (K1-K15, and K7's outer mode) against its plain PyTorch
+     twin on the card, at the main path's shapes and at edge cases, with
+     the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
      single PyTorch call computing the same function; K8-K10 are timed at
      the headline's shape (64 M rows) and at one 2^20-row batch, and K10's
      phase runs groupby_singleword on the card (no engine path calls it);
      K11 (murmur3) is also held to Spark's own hash values, K12
-     (partition_split) to a stable sort + bincount and to itself;
-  4. the main path: TPC-H q6, q1, q3, q12 and q4 through TpuSession ->
-     DataFrame -> collect on benchmarks/datagen.py lineitem, orders and
-     customer data at scale factor --sf, then the root bench.py's headline
+     (partition_split) to a stable sort + bincount and to itself, K4 also
+     reduces shuffled ids over 5000 segments (the sort first), K13
+     (find_pattern) runs over o_comment bytes with junk past the lengths,
+     K7's outer mode and K14 (build_matched) at one partition of q13's
+     join, K15 (cross_expand) with empty sides, and once the main path
+     has run, at the shapes its cold runs of q11 and q15 gave K15
+     (recorded where the engine calls the wrapper);
+  4. the main path: TPC-H q6, q1, q3, q12, q4, q13, q11 and q15 through
+     TpuSession -> DataFrame -> collect on benchmarks/datagen.py lineitem,
+     orders, customer, supplier, partsupp and nation data at scale factor
+     --sf, then the root bench.py's headline
      (filter -> project -> dense-range group-by) over its 64 M rows, one
      cold and three hot runs each, held to numpy oracles computed
      independently from the same arrays (sort + searchsorted joins,
@@ -25,11 +33,14 @@ Phases, each printing one JSON line:
      just after, and every kernel of each query's path must have launched
      in its cold run; the warm runs must be served from the device scan
      cache (no column uploaded or evicted, no cache entry refused); q3,
-     q12 and q4 must run on the reference's shuffled plan (hash
-     exchanges, shuffled joins, a range exchange under the sort);
+     q12, q4 and q13 must run on the reference's shuffled plan (hash
+     exchanges, shuffled joins, a range exchange under the sort; q13's
+     join a left outer one), q11 and q15 on a cross join;
      then, outside the counted run, the headline and q1 at update-window
-     depths 48, 8 and 1 (hot time and device peak at each), and q3 and q4
-     in the shuffled and the broadcast join form (join_form_ab);
+     depths 48, 8 and 1 (hot time and device peak at each), q3 and q4
+     in the shuffled and the broadcast join form (join_form_ab), and the
+     right and full outer joins in both forms (outer_forms: q13 written
+     as a right join, customer full outer join the filtered orders);
   5. the port bench's hand-built headline pipeline, once at 64 M rows,
      validated against the numpy oracle.
 Then the kernel summary line, the card line and, last, the result line
@@ -41,6 +52,7 @@ the script exits != 0 before printing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -444,6 +456,26 @@ def check_k4(device, rng) -> dict:
     got = A.segment_reduce(spec, seg, live, kb).data[:ng]
     if not torch.allclose(lib, got, rtol=1e-12, atol=0.0):
         raise AssertionError("K4 disagrees with torch.segment_reduce")
+    # segment_aggregate above DENSE_MAX_SLOTS with ids in any order: the
+    # live rows are stable-sorted by id, then K4 reduces the runs; held to
+    # the twin's scatter over the unsorted ids (out-of-range ids dropped)
+    ids = torch.randint(0, 5000, (cap,), dtype=torch.int32, device=device)
+    ids[torch.rand(cap, device=device) < 0.01] = 5003
+    shuffled_live = live & (torch.rand(cap, device=device) < 0.9)
+    for tname in AGG_TYPES:
+        scol = make_column(rng, tname, cap, n, device)
+        for op in AGG_OPS:
+            if not _valid_spec(op, tname):
+                continue
+            for ign in ((True, False) if op in ("first", "last")
+                        else (True,)):
+                sspec = A.AggSpec(op, None if op == "count_star" else scol,
+                                  ign)
+                column_err(
+                    A.segment_aggregate(sspec, ids, shuffled_live, cap, 5000),
+                    A._segment_reduce_torch(sspec, ids, shuffled_live, 5000),
+                    1e-12, f"K4 shuffled ids {op}({tname})")
+                checks += 1
     return {
         "name": "segment_reduce", "checks": checks + 2, "max_abs_err": err,
         "tolerance": "floats relative 1e-12, everything else exact",
@@ -644,10 +676,10 @@ def check_k7(device, rng) -> dict:
     n_build, n_probe, pcap = Q3_BUILD_ROWS, Q3_PROBE_ROWS, Q3_PROBE_CAP
     side, plane, pvalid, _b, _p = _probe_inputs(
         rng, device, n_build, Q3_BUILD_CAP, n_probe, pcap, Q3_KEY_RANGE)
-    lo, count, total = J.join_probe(side.lanes, n_build, plane, pvalid,
-                                    n_probe)
-    m = J.JoinMatch(lo, count, side.order, total, None)
-    n_pairs = int(total)
+    lo, count, totals = J.join_probe(side.lanes, n_build, plane, pvalid,
+                                     n_probe)
+    m = J.JoinMatch(lo, count, side.order, totals[0], None, totals)
+    n_pairs = int(totals[0])
     out_cap = bucket(n_pairs)
     err = _expand_err(J._expand_indices(m, out_cap),
                       J._expand_indices_torch(m, out_cap), "K7 q3")
@@ -1254,6 +1286,292 @@ def check_k12(device, rng) -> dict:
     }
 
 
+# -- K7's outer mode, K13-K15: outer and cross joins, pattern search ----------
+
+# q13's join at SF 10 on the shuffled plan: one of 8 hash partitions joins
+# ~190 K customer rows (the stream side) against ~1.9 M filtered order rows
+# (the build side); keys are customer keys
+Q13_STREAM_ROWS, Q13_STREAM_CAP = 190_000, 1 << 18
+Q13_BUILD_ROWS, Q13_BUILD_CAP = 1_900_000, 1 << 21
+
+
+def _q13_partition(rng, device):
+    """(build key column, stream key column) shaped as one partition of
+    q13's join: distinct customer keys with 1% NULL and dead rows past
+    them; order keys drawn from them, multiples of 3 moved up by one (as
+    datagen does, so those customers have no order), 1% NULL."""
+    cust = rng.choice(np.arange(1, 1_500_001), Q13_STREAM_ROWS,
+                      replace=False)
+    ck = cust[rng.integers(0, len(cust), Q13_BUILD_ROWS)]
+    ck = np.where(ck % 3 == 0, ck + 1, ck)
+    return (_key_column(ck, rng.random(Q13_BUILD_ROWS) > 0.01,
+                        Q13_BUILD_CAP, device),
+            _key_column(cust, rng.random(Q13_STREAM_ROWS) > 0.01,
+                        Q13_STREAM_CAP, device))
+
+
+def check_k7_outer(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.columnar.column import bucket
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks = 0
+    for name, bk, nb, sk, ns in _join_key_cases(rng, device):
+        m = J.join_match(bk, nb, sk, ns, sk[0].capacity)
+        out_cap = bucket(max(sum(m.totals.tolist()), 1))
+        _expand_err(J._expand_indices(m, out_cap, True, ns),
+                    J._expand_indices_torch(m, out_cap, True, ns),
+                    f"K7 outer {name}")
+        checks += 1
+    # the main path's shape: one partition of q13's left join
+    bcol, scol = _q13_partition(rng, device)
+    ns = Q13_STREAM_ROWS
+    m = J.join_match([bcol], Q13_BUILD_ROWS, [scol], ns, Q13_STREAM_CAP)
+    pairs, lonely = m.totals.tolist()
+    rows = pairs + lonely
+    out_cap = bucket(rows)
+    got = J._expand_indices(m, out_cap, True, ns)
+    err = _expand_err(got, J._expand_indices_torch(m, out_cap, True, ns),
+                      "K7 outer q13")
+    if int((got[1][:rows] == -1).sum()) != lonely or lonely == 0:
+        raise AssertionError("K7 outer: unmatched rows differ from K6's")
+    idx = torch.arange(Q13_STREAM_CAP, device=device)
+    live_rows = idx < ns
+
+    def library():
+        return torch.repeat_interleave(
+            idx, torch.where(live_rows, m.count.clamp(min=1), 0),
+            output_size=rows)
+    if not torch.equal(library(), got[0][:rows]):
+        raise AssertionError("K7 outer disagrees with repeat_interleave")
+    return {
+        "name": "join_expand_outer", "checks": checks + 2,
+        "max_abs_err": err, "tolerance": "exact (indices)",
+        "pairs": pairs, "unmatched_stream_rows": lonely,
+        "out_capacity": out_cap,
+        "ms": time_ms(lambda: J._expand_indices(m, out_cap, True, ns)),
+        "plain_ms": time_ms(lambda: J._expand_indices_torch(
+            m, out_cap, True, ns)),
+        "library_ms": time_ms(library),
+        # count and lo of each live stream row read, one order entry per
+        # pair read, two int64 indices per output row and the total written
+        "bound_ms": bound_ms(ns * (4 + 4) + pairs * 8 + rows * 16 + 8),
+    }
+
+
+def check_k14(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks = 0
+    for name, bk, nb, sk, ns in _join_key_cases(rng, device):
+        m = J.join_match(bk, nb, sk, ns, sk[0].capacity)
+        bcap = m.build_order.shape[0]
+        tensor_err(J.build_matched(m.lo, m.count, nb, bcap),
+                   J._build_matched_torch(m.lo, m.count, nb, bcap),
+                   f"K14 {name}")
+        checks += 1
+    bcol, scol = _q13_partition(rng, device)
+    nb, ns = Q13_BUILD_ROWS, Q13_STREAM_ROWS
+    m = J.join_match([bcol], nb, [scol], ns, Q13_STREAM_CAP,
+                     with_build_matched=True)
+    got = m.build_matched
+    err = tensor_err(got, J._build_matched_torch(m.lo, m.count, nb,
+                                                 Q13_BUILD_CAP), "K14 q13")
+    # numpy: a build row is matched when its key is a live stream key
+    bk = bcol.data[:nb].cpu().numpy()
+    bv = bcol.validity[:nb].cpu().numpy()
+    sk = scol.data[:ns].cpu().numpy()[scol.validity[:ns].cpu().numpy()]
+    want = int((bv & np.isin(bk, sk)).sum())
+    if int(got.sum()) != want:
+        raise AssertionError(f"K14: {int(got.sum())} matched build rows, "
+                             f"numpy {want}")
+    _cols, ucnt = J.unmatched_build_gather(m, [bcol], nb)
+    if int(ucnt) != nb - want:
+        raise AssertionError("K14: unmatched build rows differ from numpy")
+    has = m.count > 0
+    start = m.lo.to(torch.int64)[has]
+    end = start + m.count.to(torch.int64)[has]
+    one = torch.ones(start.shape[0], dtype=torch.int32, device=device)
+
+    def library():
+        d = torch.zeros(Q13_BUILD_CAP + 1, dtype=torch.int32, device=device)
+        d.index_add_(0, start, one)
+        d.index_add_(0, end, -one)
+        return torch.cumsum(d[:-1], 0) > 0
+    if not torch.equal(library() & (torch.arange(
+            Q13_BUILD_CAP, device=device) < nb), got):
+        raise AssertionError("K14 disagrees with index_add_ + cumsum")
+    return {
+        "name": "build_matched", "checks": checks + 4, "max_abs_err": err,
+        "tolerance": "exact (flags, counts)", "matched": want,
+        "ms": time_ms(lambda: J.build_matched(m.lo, m.count, nb,
+                                              Q13_BUILD_CAP)),
+        "plain_ms": time_ms(lambda: J._build_matched_torch(
+            m.lo, m.count, nb, Q13_BUILD_CAP)),
+        "library_ms": time_ms(library),
+        # lo and count of each live stream row read, one flag per build
+        # slot written
+        "bound_ms": bound_ms(ns * (4 + 4) + Q13_BUILD_CAP),
+    }
+
+
+def check_k15(device, rng) -> dict:
+    """K15 against its twin at the edge cases: empty sides, one slot, and
+    products that are not a multiple of a block. Its main-path shapes are
+    checked and timed by :func:`check_k15_main` once the counted run has
+    given them."""
+    from spark_rapids_tpu_torch.columnar.column import bucket
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks = 0
+    for nl, nr in ((0, 5), (5, 0), (0, 0), (1, 1), (7, 130), (130, 7),
+                   (1000, 1000), (1, 1 << 20)):
+        cap = bucket(max(nl * nr, 1))
+        got = J.cross_expand(nl, nr, cap, device)
+        for g, w, what in zip(got, J._cross_expand_torch(nl, nr, cap, device),
+                              ("left", "right", "total")):
+            tensor_err(g, w, f"K15 {nl}x{nr} {what}")
+        checks += 1
+    return {"name": "cross_expand", "checks": checks, "max_abs_err": 0.0,
+            "tolerance": "exact (indices, total)"}
+
+
+def check_k15_main(device, shapes: dict) -> dict:
+    """K15 at the shapes the counted run gave it: every (n_left, n_right,
+    out_capacity) of q11's and q15's cold runs held to the twin bit for
+    bit and to floor division + remainder; timed at q11's one launch (all
+    its per-part sums against the threshold row) and at q15's largest
+    partition (its supplier-join rows against the max row)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    checks, timed = 0, {}
+    for query, calls in shapes.items():
+        for nl, nr, cap in calls:
+            got = J.cross_expand(nl, nr, cap, device)
+            for g, w, what in zip(got, J._cross_expand_torch(nl, nr, cap,
+                                                             device),
+                                  ("left", "right", "total")):
+                tensor_err(g, w, f"K15 {query} {nl}x{nr} {what}")
+            ar = torch.arange(cap, device=device)
+            lib = (torch.div(ar, nr, rounding_mode="floor"),
+                   torch.remainder(ar, nr))
+            if not (torch.equal(lib[0][:nl * nr], got[0][:nl * nr]) and
+                    torch.equal(lib[1][:nl * nr], got[1][:nl * nr])):
+                raise AssertionError(f"K15 {query} disagrees with floor "
+                                     "division and remainder")
+            checks += 2
+        nl, nr, cap = max(calls)
+        ar = torch.arange(cap, device=device)
+        nr_t = torch.tensor(nr, device=device)
+
+        def library():
+            return (torch.div(ar, nr_t, rounding_mode="floor"),
+                    torch.remainder(ar, nr_t))
+        timed[query] = {
+            "n_left": nl, "n_right": nr, "out_capacity": cap,
+            "ms": time_ms(lambda: J.cross_expand(nl, nr, cap, device)),
+            "plain_ms": time_ms(lambda: J._cross_expand_torch(
+                nl, nr, cap, device)),
+            "library_ms": time_ms(library),
+            # the two counts read, two int64 indices per output slot and
+            # the total written
+            "bound_ms": bound_ms(8 + cap * 16 + 8)}
+    return {"name": "cross_expand", "main_path_checks": checks,
+            "shapes": {q: [list(c) for c in calls]
+                       for q, calls in shapes.items()},
+            **{k: timed["q11"][k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")},
+            "timed_at": timed}
+
+
+COMMENT_WIDTH = 32
+
+
+def _comments(rng, n: int, cap: int, device, null_frac: float = 0.0):
+    """An o_comment column as datagen's gen_orders draws it (two of its
+    words), in a 32-byte bucket."""
+    from benchmarks import datagen
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    w = np.array(datagen._COMMENT_WORDS)
+    vals = np.char.add(np.char.add(w[rng.integers(0, len(w), n)], " "),
+                       w[rng.integers(0, len(w), n)])
+    return Column.from_numpy(vals, dt.STRING, rng.random(n) >= null_frac,
+                             capacity=cap, device=device,
+                             width=COMMENT_WIDTH)
+
+
+K13_PATTERNS = ("special", "requests", "", "s", "é", "spécial",
+                "x" * COMMENT_WIDTH, "x" * (COMMENT_WIDTH + 1),
+                "quickly final")
+
+
+def check_k13(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.ops import expressions as E
+    from spark_rapids_tpu_torch.ops import strings as S
+    cap = 1 << 20
+    n = cap - 1234
+    col = _comments(rng, n, cap, device)
+    w = COMMENT_WIDTH
+    # junk bytes past every length
+    pos = torch.arange(w, device=device)[None, :]
+    junk = torch.randint(1, 256, (cap, w), dtype=torch.uint8, device=device)
+    junked = torch.where(pos >= col.lengths[:, None], junk, col.data)
+    # UTF-8 rows, rows exactly W bytes wide and one byte short, a match
+    # ending exactly at the length and one ending a byte past it
+    edge = ["spécial requests", "é", "x" * w, "x" * (w - 1), "requests",
+            "xx requests", "", "special"]
+    ecol = Column.from_numpy(np.array(edge), dt.STRING, capacity=128,
+                             device=device, width=w)
+    elen = ecol.lengths.clone()
+    elen[5] = 10                       # "xx request": the match is cut
+    checks = 0
+    for data, lengths, what in ((col.data, col.lengths, "o_comment"),
+                                (junked.contiguous(), col.lengths, "junk"),
+                                (ecol.data, ecol.lengths, "edge rows"),
+                                (ecol.data, elen, "cut lengths")):
+        for p in K13_PATTERNS:
+            pat = torch.tensor(list(p.encode("utf-8")), dtype=torch.uint8,
+                               device=device)
+            for mode in (S.FIRST, S.PREFIX, S.SUFFIX):
+                tensor_err(S.find_pattern(data, lengths, pat, mode),
+                           S._find_pattern_torch(data, lengths, pat, mode),
+                           f"K13 {what} {p!r} mode {mode}")
+                checks += 1
+    got = S.find_pattern(ecol.data, elen, torch.tensor(
+        list(b"requests"), dtype=torch.uint8, device=device), S.FIRST)
+    if got[:8].tolist() != [9, -1, -1, -1, 0, -1, -1, -1]:
+        raise AssertionError(f"K13 edge rows: {got[:8].tolist()}")
+    # the predicates over a batch with NULL rows and dead rows
+    ncol = _comments(rng, n, cap, device, null_frac=0.1)
+    batch = ColumnarBatch(dt.Schema([dt.Field("c", dt.STRING)]), [ncol], n)
+    live = torch.arange(cap, device=device) < n
+    for cls, mode in ((S.Contains, S.FIRST), (S.StartsWith, S.PREFIX),
+                      (S.EndsWith, S.SUFFIX)):
+        out = cls(E.BoundReference(0, dt.STRING, True, "c"),
+                  E.Literal("special", dt.STRING)).eval(batch)
+        want_pos = S._find_pattern_torch(ncol.data, ncol.lengths, torch.tensor(
+            list(b"special"), dtype=torch.uint8, device=device), mode)
+        valid = ncol.validity & live
+        tensor_err(out.validity, valid, f"K13 {cls.__name__} validity")
+        tensor_err(out.data, (want_pos >= 0) & valid,
+                   f"K13 {cls.__name__} data")
+        checks += 1
+    pat = torch.tensor(list(b"special"), dtype=torch.uint8, device=device)
+    return {
+        "name": "find_pattern", "checks": checks + 1, "max_abs_err": 0.0,
+        "tolerance": "exact (positions)", "rows": n, "width": w,
+        "ms": time_ms(lambda: S.find_pattern(col.data, col.lengths, pat)),
+        "plain_ms": time_ms(lambda: S._find_pattern_torch(
+            col.data, col.lengths, pat, S.FIRST)),
+        "library_ms": None,            # no single PyTorch call computes it
+        # the byte rows and lengths read, an int32 per row written
+        "bound_ms": bound_ms(cap * (w + 4) + cap * 4),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -1293,16 +1611,23 @@ def close(a: float, b: float, rel: float) -> bool:
     return abs(a - b) <= rel * max(abs(a), abs(b), 1e-300)
 
 
+# what a failed comparison of a query prints beside its rows (q11: how
+# close its float boundary came)
+ORACLE_NOTES = {}
+
+
 def check_rows(name: str, got, want, rel: float = 1e-9) -> None:
+    note = ORACLE_NOTES.get(name, "")
     if len(got) != len(want):
-        raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}")
+        raise AssertionError(f"{name}: {len(got)} rows, oracle {len(want)}"
+                             f"{note}")
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             if isinstance(y, float):
                 if not close(float(x), y, rel):
-                    raise AssertionError(f"{name}: {g} vs oracle {w}")
+                    raise AssertionError(f"{name}: {g} vs oracle {w}{note}")
             elif x != y:
-                raise AssertionError(f"{name}: {g} vs oracle {w}")
+                raise AssertionError(f"{name}: {g} vs oracle {w}{note}")
 
 
 def np_join(lk, rk):
@@ -1361,6 +1686,70 @@ def oracle_q4(l, o):
     return [(str(k), int((prio == k).sum())) for k in np.unique(prio)]
 
 
+def q13_order_mask(comments) -> np.ndarray:
+    """The orders q13 keeps, NOT (contains 'special' AND contains
+    'requests'), decided once per distinct comment."""
+    uniq, inv = np.unique(comments, return_inverse=True)
+    keep = np.array([not ("special" in c and "requests" in c)
+                     for c in uniq.tolist()])
+    return keep[inv]
+
+
+def oracle_q13(o, c, mask):
+    """(c_count, custdist), custdist then c_count descending: orders per
+    customer (0 for one without), then customers per order count."""
+    per = np.bincount(o["o_custkey"][mask],
+                      minlength=len(c["c_custkey"]) + 3)[c["c_custkey"]]
+    dist = np.bincount(per)
+    rows = [(int(k), int(dist[k])) for k in np.nonzero(dist)[0]]
+    return sorted(rows, key=lambda r: (-r[1], -r[0]))
+
+
+def oracle_q11(ps, s, n):
+    """(ps_partkey, value) over GERMANY's suppliers where value >
+    threshold, value descending; and the relative distance of the nearest
+    value to the threshold (a row that close may fall either side when the
+    sums are added in another order)."""
+    g = n["n_nationkey"][n["n_name"] == "GERMANY"]
+    supp = s["s_suppkey"][np.isin(s["s_nationkey"], g)]
+    m = np.isin(ps["ps_suppkey"], supp)
+    value = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    keys, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
+    sums = np.bincount(inv, weights=value)
+    threshold = float(value.sum()) * 0.0001
+    keep = sums > threshold
+    order = np.lexsort((keys[keep], -sums[keep]))
+    margin = float(np.min(np.abs(sums - threshold)) / threshold)
+    return ([(int(k), float(v)) for k, v in
+             zip(keys[keep][order], sums[keep][order])], margin)
+
+
+def oracle_q15(l, s):
+    """(s_suppkey, s_name, total_revenue) of the suppliers within 1e-6 of
+    the top revenue of 1994's first quarter, by key."""
+    m = (l["l_shipdate"] >= 8766) & (l["l_shipdate"] < 8766 + 90)
+    rev = l["l_extendedprice"][m] * (1.0 - l["l_discount"][m])
+    keys, inv = np.unique(l["l_suppkey"][m], return_inverse=True)
+    sums = np.bincount(inv, weights=rev)
+    top = sums >= sums.max() * (1.0 - 1e-6)
+    name = dict(zip(s["s_suppkey"].tolist(), s["s_name"].tolist()))
+    return [(int(k), name[int(k)], float(v))
+            for k, v in zip(keys[top], sums[top]) if int(k) in name]
+
+
+def oracle_full_outer(o, c, mask):
+    """count(*), count(c_custkey), count(o_orderkey), sum(o_totalprice)
+    of customer FULL OUTER JOIN q13's filtered orders on the customer
+    key."""
+    ck = o["o_custkey"][mask]
+    known = np.isin(ck, c["c_custkey"])
+    pairs = int(known.sum())
+    lonely_c = int((~np.isin(c["c_custkey"], ck)).sum())
+    lonely_o = int((~known).sum())
+    return [(pairs + lonely_c + lonely_o, pairs + lonely_c,
+             pairs + lonely_o, float(o["o_totalprice"][mask].sum()))]
+
+
 def oracle_headline(n: int):
     """(key, sum, count, avg) per group of the headline over the first n
     rows of the root bench's data; sums are numpy's sequential f64 sums."""
@@ -1386,14 +1775,29 @@ PATH_KERNELS = {
     "q4": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
            "join_probe", "segment_bounds", "slot_aggregate",
            "segment_reduce"),
+    "q13": ("find_pattern", "compact_scan", "murmur3", "partition_split",
+            "sort_key_lanes", "join_probe", "join_expand_outer",
+            "segment_bounds", "segment_reduce"),
+    "q11": ("sort_key_lanes", "join_probe", "join_expand", "cross_expand",
+            "compact_scan"),
+    "q15": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
+            "cross_expand"),
 }
-# the operators q3, q4 and q12 must run on at SF 10: the reference's
-# shuffled plan (their build sides are far above the 10 MiB threshold)
+# the operators q3, q4, q12 and q13 must run on at SF 10: the reference's
+# shuffled plan (their build sides are far above the 10 MiB threshold);
+# q11 and q15 must cross-join their scalar subqueries
 SHUFFLED_OPERATORS = ("TpuShuffledJoinExec", "TpuHashExchangeExec",
                       "TpuRangeExchangeExec")
+REQUIRED_OPERATORS = {"q3": SHUFFLED_OPERATORS, "q12": SHUFFLED_OPERATORS,
+                      "q4": SHUFFLED_OPERATORS, "q13": SHUFFLED_OPERATORS,
+                      "q11": ("TpuCrossJoinExec",),
+                      "q15": ("TpuCrossJoinExec",)}
 # launched by their own phase, not by the main path
 PHASE_KERNELS = {"singleword_rank": "check_k10: groupby_singleword at 2^20 "
-                 "rows (no engine path calls the single-word route)"}
+                 "rows (no engine path calls the single-word route)",
+                 "build_matched": "outer_forms: customer FULL OUTER JOIN "
+                 "q13's filtered orders (no main-path query is a full "
+                 "outer join)"}
 
 
 def run_query(name: str, tables, cache, oracle, n_rows: int, device
@@ -1403,6 +1807,8 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     and every kernel of the query's path must launch in its cold run."""
     import torch
     from spark_rapids_tpu_torch import native, queries
+    from spark_rapids_tpu_torch.plan import physical as ph
+    from spark_rapids_tpu_torch.shuffle.exchange import TpuHashExchangeExec
     qfn = queries.QUERIES[name]
     table = queries.TABLES[name][-1]
     before = native.counts()
@@ -1438,10 +1844,16 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
     n_batches = -(-n_rows // (1 << 20))
     plan = tables[table].session.last_plan()
     operators = plan.operator_tree()
-    if name in ("q3", "q12", "q4"):
-        absent = [op for op in SHUFFLED_OPERATORS if op not in operators]
-        if absent:
-            raise AssertionError(f"{name}: plan lacks {absent}:\n{operators}")
+    absent = [op for op in REQUIRED_OPERATORS.get(name, ())
+              if op not in operators]
+    if absent:
+        raise AssertionError(f"{name}: plan lacks {absent}:\n{operators}")
+    if name == "q13" and not any(
+            isinstance(n, ph.TpuShuffledJoinExec) and n.how == "left" and
+            all(isinstance(c, TpuHashExchangeExec) for c in n.children)
+            for n in _plan_nodes(plan)):
+        raise AssertionError(f"q13 is not a shuffled left outer join over "
+                             f"two hash exchanges:\n{plan}")
     windows = [(node.name, node.window) for node in _plan_nodes(plan)
                if getattr(node, "window", None) is not None]
     return {
@@ -1449,9 +1861,9 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
         f"{table}_rows": n_rows, f"{table}_batches": n_batches,
         "cold_s": cold, "hot_s": min(hots),
         "hot_rows_per_s": n_rows / min(hots),
-        "launches_cold_run": cold_launches,
-        f"launches_per_{table}_batch": {
-            k: v / n_batches for k, v in cold_launches.items()},
+        # the kernels this query launched (the others 0); per scan batch
+        # of its main table divide by the batches
+        "launches_cold_run": {k: v for k, v in cold_launches.items() if v},
         "scan_column_batches_uploaded_cold": cold_uploads,
         "scan_cache_bytes": cache.bytes,
         "scan_cache_columns_evicted": cache.evicted,
@@ -1478,36 +1890,174 @@ def main_path(sf: float, device) -> tuple:
     from benchmarks import datagen
     from spark_rapids_tpu_torch import native, queries
     from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.ops import joins as J
     t0 = time.perf_counter()
     data = {"lineitem": datagen.gen_lineitem(sf),
             "orders": datagen.gen_orders(sf),
             "customer": datagen.gen_customer(sf),
+            "supplier": datagen.gen_supplier(sf),
+            "partsupp": datagen.gen_partsupp(sf),
+            "nation": datagen.gen_nation(),
             "headline": queries.headline_table(HEADLINE_ROWS)}
     gen_s = time.perf_counter() - t0
     l, o, c = data["lineitem"], data["orders"], data["customer"]
-    n_rows = len(l["l_orderkey"])
+    s, ps = data["supplier"], data["partsupp"]
     t0 = time.perf_counter()
+    kept = q13_order_mask(o["o_comment"])
+    q11_rows, q11_margin = oracle_q11(ps, s, data["nation"])
+    ORACLE_NOTES["q11"] = (f" (the nearest per-part value lies "
+                           f"{q11_margin:.3e} of the threshold from it, "
+                           f"relative)")
     oracles = {"q6": [(oracle_q6(l),)], "q1": oracle_q1(l),
                "q3": oracle_q3(l, o, c), "q12": oracle_q12(l, o),
-               "q4": oracle_q4(l, o),
+               "q4": oracle_q4(l, o), "q13": oracle_q13(o, c, kept),
+               "q11": q11_rows, "q15": oracle_q15(l, s),
+               "full_outer": oracle_full_outer(o, c, kept),
                "headline": oracle_headline(HEADLINE_ROWS)}
     oracle_s = time.perf_counter() - t0
+    rows_of = {"headline": HEADLINE_ROWS}
+    for name in MAIN_QUERIES:
+        main = queries.TABLES[name][-1]
+        rows_of.setdefault(name, len(next(iter(data[main].values()))))
     session = TpuSession.builder.config(
         {"spark.rapids.torch.device": str(device)}).getOrCreate()
     tables = {name: session.createDataFrame(
         cols, schema=queries.table_schema(cols))
         for name, cols in data.items()}
     torch.cuda.reset_peak_memory_stats(device)
-    native.reset_counts()
-    lines = [run_query(name, tables, session.scan_cache, oracles[name],
-                       HEADLINE_ROWS if name == "headline" else n_rows,
-                       device)
-             for name in ("q6", "q1", "q3", "q12", "q4", "headline")]
-    launches = native.counts()
+    lines, k15_shapes = [], {}
+    with recording(J, "cross_expand") as calls:
+        native.reset_counts()
+        for name in MAIN_QUERIES:
+            start = len(calls)
+            lines.append(run_query(name, tables, session.scan_cache,
+                                   oracles[name], rows_of[name], device))
+            n = lines[-1]["launches_cold_run"].get("cross_expand", 0)
+            if n:
+                k15_shapes[name] = calls[start:start + n]
+        launches = native.counts()
     peak = max(line["peak_device_bytes"] for line in lines)
     ab = window_depth_ab(session, tables, oracles, device)
     jf = join_form_ab(session, tables, oracles, device)
-    return lines, launches, peak, gen_s, oracle_s, ab, jf
+    of = outer_forms(session, tables, oracles, device)
+    return lines, launches, peak, gen_s, oracle_s, (ab, jf, of), k15_shapes
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """``module.<name>`` replaced, inside the block, by a pass-through
+    that appends each call's first three positional arguments to the
+    list it yields: the shapes the engine gives a kernel's wrapper."""
+    real = getattr(module, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append(tuple(args[:3]))
+        return real(*args, **kwargs)
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+# the counted run, in this order
+MAIN_QUERIES = ("q6", "q1", "q3", "q12", "q4", "q13", "q11", "q15",
+                "headline")
+
+
+def q13_filtered_orders(t):
+    from spark_rapids_tpu_torch.api.functions import col
+    return t["orders"].filter(
+        ~(col("o_comment").contains("special") &
+          col("o_comment").contains("requests")))
+
+
+def q13_right(t):
+    """q13 with its join written the other way round: the filtered orders
+    RIGHT OUTER JOIN customer (planned as the left join with the sides
+    swapped, under _ReorderExec)."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col
+    per_cust = (q13_filtered_orders(t)
+                .join(t["customer"],
+                      on=(col("o_custkey") == col("c_custkey")),
+                      how="right")
+                .groupBy("c_custkey")
+                .agg(F.count("o_orderkey").alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(col("custdist").desc(), col("c_count").desc()))
+
+
+def full_outer(t):
+    """customer FULL OUTER JOIN q13's filtered orders on the customer
+    key: matched pairs, customers without an order and orders without a
+    customer, counted and summed."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col
+    return (t["customer"]
+            .join(q13_filtered_orders(t),
+                  on=(col("c_custkey") == col("o_custkey")), how="full")
+            .agg(F.count("*"), F.count("c_custkey"), F.count("o_orderkey"),
+                 F.sum("o_totalprice")))
+
+
+OUTER_FORMS = {"q13_right": (q13_right, "q13", "_ReorderExec"),
+               "full_outer": (full_outer, "full_outer", "[full]")}
+
+
+def outer_forms(session, tables, oracles, device) -> dict:
+    """The right and full outer joins, outside the counted run, in the
+    shuffled form (the default at SF 10) and the broadcast form: per query
+    and form one cold and three hot runs held to the oracle, the device
+    peak over them and the kernels' launches in the cold run."""
+    import torch
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch import native
+    key = cfg.AUTO_BROADCAST_JOIN_THRESHOLD.key
+    runs, phase = {}, {k: 0 for k in native.KERNELS}
+    for form in ("shuffled", "broadcast"):
+        session.conf.set(key, JOIN_FORMS[form].get(
+            key, cfg.AUTO_BROADCAST_JOIN_THRESHOLD.default))
+        for name, (qfn, oracle, op) in OUTER_FORMS.items():
+            before = native.counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            check_rows(name, qfn(tables).collect(), oracles[oracle])
+            cold = time.perf_counter() - t0
+            cold_launches = {k: v - before[k]
+                             for k, v in native.counts().items()}
+            hots = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                check_rows(name, qfn(tables).collect(), oracles[oracle])
+                hots.append(time.perf_counter() - t0)
+            after = native.counts()
+            for k in phase:
+                phase[k] += after[k] - before[k]
+            plan = session.last_plan()
+            tree = plan.operator_tree()
+            want_join = "TpuShuffledJoinExec" if form == "shuffled" else \
+                "TpuBroadcastExchangeExec"
+            if op not in plan.tree_string() or want_join not in tree:
+                raise AssertionError(f"{name} ({form}): plan lacks {op} or "
+                                     f"{want_join}:\n{tree}")
+            for k in ("join_expand_outer",) + (
+                    ("build_matched",) if name == "full_outer" else ()):
+                if cold_launches[k] <= 0:
+                    raise AssertionError(f"{name} ({form}) did not launch "
+                                         f"{k}")
+            runs[f"{name}_{form}"] = {
+                "cold_s": cold, "hot_s": min(hots),
+                "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+                "launches_cold_run": {k: v for k, v in cold_launches.items()
+                                      if v},
+                "plan": tree.splitlines()}
+    session.conf.set(key, cfg.AUTO_BROADCAST_JOIN_THRESHOLD.default)
+    return {"phase": "outer_forms", "runs": runs, "phase_launches": phase,
+            "oracle": "numpy, relative 1e-9"}
 
 
 # q3 and q4 in the reference's shuffled form (the default at SF 10) and in
@@ -1626,6 +2176,10 @@ REPLACES = {
     "singleword_rank": "spark_rapids_tpu/ops/aggregates.py:723",
     "murmur3": "spark_rapids_tpu/ops/hashing.py:123",
     "partition_split": "spark_rapids_tpu/shuffle/partitioning.py:41",
+    "join_expand_outer": "spark_rapids_tpu/ops/joins.py:201",
+    "find_pattern": "spark_rapids_tpu/ops/strings.py:74",
+    "build_matched": "spark_rapids_tpu/ops/joins.py:147",
+    "cross_expand": "spark_rapids_tpu/ops/joins.py:241",
 }
 
 
@@ -1668,29 +2222,35 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     build_s = native.build_seconds()
-    emit({"phase": "build", "seconds": build_s, "built": list(native.KERNELS),
+    emit({"phase": "build", "seconds": build_s, "built": list(native.SOURCES),
           "nvcc": native.nvcc_path(), "arch": " ".join(native.ARCH_FLAGS)})
 
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     results = {}
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                  check_k6, check_k7, check_k8, check_k9, check_k10,
-                  check_k11, check_k12):
+                  check_k6, check_k7, check_k7_outer, check_k8, check_k9,
+                  check_k10, check_k11, check_k12, check_k13, check_k14,
+                  check_k15):
         r = check(device, rng)
         torch.cuda.synchronize()
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
 
-    lines, launches, peak, gen_s, oracle_s, ab, jf = main_path(args.sf,
-                                                                device)
+    lines, launches, peak, gen_s, oracle_s, phases, k15_shapes = \
+        main_path(args.sf, device)
     for line in lines:
         emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
           "launches": launches})
-    emit(ab)
-    emit(jf)
+    for phase in phases:
+        emit(phase)
+    r = check_k15_main(device, k15_shapes)
+    results["cross_expand"].update(r)
+    emit({"phase": "kernel", **r})
+    results["build_matched"]["phase_launches"] = \
+        phases[-1]["phase_launches"]["build_matched"]
     unused = [k for k in native.KERNELS
               if k not in PHASE_KERNELS and launches[k] <= 0]
     if unused:
@@ -1702,7 +2262,8 @@ def main() -> int:
 
     emit({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"spark_rapids_tpu_torch/csrc/{name}.cu",
+        "source": "spark_rapids_tpu_torch/csrc/"
+                  f"{native.LIBRARY_OF.get(name, name)}.cu",
         "replaces": REPLACES[name], "launches": launches[name],
         **({"launched_by": PHASE_KERNELS[name],
             "phase_launches": results[name]["phase_launches"]}

@@ -1,6 +1,7 @@
 """Column wrapper: the operator-overloaded expression builder (pyspark
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
-operators, ``isin`` and the ``when(...).otherwise(...)`` chain."""
+operators, ``isin``, the string predicates ``contains``, ``startswith``
+and ``endswith``, and the ``when(...).otherwise(...)`` chain."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from ..ops import arithmetic as ar
 from ..ops import conditionals as co
 from ..ops import expressions as ex
 from ..ops import predicates as pr
+from ..ops import strings as st
 from ..plan import logical as lp
 
 
@@ -55,6 +57,16 @@ class Col:
         vals = list(values[0]) if len(values) == 1 and \
             isinstance(values[0], (list, tuple, set)) else list(values)
         return Col(pr.In(self.expr, vals))
+
+    # string predicates
+    def contains(self, other):
+        return Col(st.Contains(self.expr, _unwrap(other)))
+
+    def startswith(self, other):
+        return Col(st.StartsWith(self.expr, _unwrap(other)))
+
+    def endswith(self, other):
+        return Col(st.EndsWith(self.expr, _unwrap(other)))
 
     def alias(self, name: str) -> "Col":
         return Col(ex.Alias(self.expr, name))

@@ -1,7 +1,7 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn, join, groupBy().agg, agg, orderBy, limit, repartition,
-coalesce, collect and collect_batch."""
+select, withColumn, join, crossJoin, groupBy().agg, agg, orderBy, limit,
+repartition, coalesce, collect and collect_batch."""
 
 from __future__ import annotations
 
@@ -73,8 +73,9 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None, how: str = "inner"
              ) -> "DataFrame":
-        """Join on a Column condition or a list of them (ANDed). Join by
-        column names (``on="k"``) is not ported yet."""
+        """Join on a Column condition or a list of them (ANDed); ``how``
+        inner, left, right, full, left_semi, left_anti or cross (and their
+        aliases). Join by column names (``on="k"``) is not ported yet."""
         how = self._JOIN_ALIASES.get(how, how)
         conds = list(on) if isinstance(on, (list, tuple)) else \
             ([] if on is None else [on])
@@ -86,6 +87,9 @@ class DataFrame:
         for c in conds:
             cond = _unwrap(c) if cond is None else pr.And(cond, _unwrap(c))
         return self._df(lp.Join(self._plan, other._plan, how, cond))
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return self._df(lp.Join(self._plan, other._plan, "cross"))
 
     def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
         return GroupedData(self, [_to_expr(c) for c in cols])

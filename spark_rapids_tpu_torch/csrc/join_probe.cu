@@ -11,14 +11,17 @@
 //             (the lower bound over the sorted build lanes);
 //   count[i]  upper bound - lo[i] when row i is live (i < *n_probe) and
 //             none of its keys is NULL, else 0;
-//   total[1]  the sum of count (int64).
+//   total[2]  the sum of count, and the number of live probe rows whose
+//             count is 0 (int64): an outer join's output rows are their
+//             sum, read from the device in one copy.
 //
 // Bound on the card: bytes (the probe lanes and validities read once, 8
 // bytes a row written, plus the build-lane sectors the searches visit).
 // Design: one thread per probe row, two binary searches over lane-major
 // build lanes (the upper one starts from the lower bound), the probe's lanes
-// in registers. The total is one block sum and one integer atomic per
-// block: integer addition, so the total is the same whatever the order.
+// in registers. The two totals share one block sum (packed into one
+// int64) and take one integer atomic each per block: integer addition,
+// so the totals are the same whatever the order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,6 +31,9 @@
 #define MAX_LANES 16
 
 namespace {
+
+constexpr int kPackBits = 9;  // 2^9 > scan::kThreads
+static_assert((1 << kPackBits) > scan::kThreads, "pack width");
 
 struct ValidTable {
   int n;
@@ -52,6 +58,7 @@ __global__ void probe_kernel(const long long* build, long long bcap,
                              unsigned long long* total) {
   const long long i = (long long)blockIdx.x * scan::kThreads + threadIdx.x;
   long long c = 0;
+  long long unmatched = 0;
   if (i < pcap) {
     long long p[MAX_LANES];
     for (int l = 0; l < nl; ++l) p[l] = probe[(long long)l * pcap + i];
@@ -72,12 +79,20 @@ __global__ void probe_kernel(const long long* build, long long bcap,
     bool ok = i < (long long)*n_probe;
     for (int k = 0; k < vt.n; ++k) ok = ok && vt.v[k][i] != 0;
     c = ok ? lo - first : 0;
+    unmatched = (i < (long long)*n_probe && c == 0) ? 1 : 0;
     lo_out[i] = (int)first;
     count_out[i] = (int)c;
   }
-  const long long block_total = scan::block_sum<long long>(c);
+  // one block sum carries both totals: the unmatched rows of a block
+  // (at most kThreads) fit in the low kPackBits bits
+  const long long block =
+      scan::block_sum<long long>((c << kPackBits) + unmatched);
+  const long long block_total = block >> kPackBits;
+  const long long block_unmatched = block & ((1ll << kPackBits) - 1);
   if (threadIdx.x == 0 && block_total != 0)
     atomicAdd(total, (unsigned long long)block_total);
+  if (threadIdx.x == 0 && block_unmatched != 0)
+    atomicAdd(total + 1, (unsigned long long)block_unmatched);
 }
 
 }  // namespace
@@ -86,7 +101,7 @@ extern "C" {
 
 // build: int64[nl * bcap] sorted lanes, lane-major; probe: int64[nl * pcap].
 // valid: nkeys uint8[pcap] validity arrays of the probe keys. lo, count:
-// int32[pcap]; total: int64[1]. Returns 0 or the CUDA error.
+// int32[pcap]; total: int64[2]. Returns 0 or the CUDA error.
 int join_probe(const void* build, long long bcap, const void* n_build,
                const void* probe, long long pcap, int nl,
                const void* const* valid, int nkeys, const void* n_probe,
@@ -98,7 +113,7 @@ int join_probe(const void* build, long long bcap, const void* n_build,
   vt.n = nkeys;
   for (int k = 0; k < nkeys; ++k) vt.v[k] = (const uint8_t*)valid[k];
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(total, 0, sizeof(long long), s);
+  cudaError_t e = cudaMemsetAsync(total, 0, 2 * sizeof(long long), s);
   if (e != cudaSuccess) return (int)e;
   probe_kernel<<<scan::num_blocks(pcap), scan::kThreads, 0, s>>>(
       (const long long*)build, bcap, (const int*)n_build,

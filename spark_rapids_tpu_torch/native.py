@@ -7,8 +7,9 @@ checkout, one ``nvcc`` per source, all started together, and is skipped
 for a library newer than its sources. Nothing here runs at import time.
 
 The only process state is the loaded library handles and ``LAUNCHES``: one
-plain integer per kernel, bumped by its wrapper where it launches, so a run
-can show which kernels the main path went through.
+plain integer per kernel (K7's outer mode has its own), bumped by its
+wrapper where it launches, so a run can show which kernels the main path
+went through.
 """
 
 from __future__ import annotations
@@ -24,10 +25,16 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# every kernel with its own launch counter; a mode of a kernel that is
+# counted apart names its library in LIBRARY_OF
 KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "segment_reduce", "compact_scan", "join_probe", "join_expand",
-           "dense_stats", "slot_aggregate", "singleword_rank", "murmur3",
-           "partition_split")
+           "join_expand_outer", "dense_stats", "slot_aggregate",
+           "singleword_rank", "murmur3", "partition_split", "find_pattern",
+           "build_matched", "cross_expand")
+LIBRARY_OF = {"join_expand_outer": "join_expand"}
+# the libraries, one csrc/<name>.cu each
+SOURCES = tuple(k for k in KERNELS if k not in LIBRARY_OF)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -77,7 +84,8 @@ _SIGNATURES = {
                             _P, _P]),
     },
     "join_expand": {
-        "join_expand": (_I, [_P, _P, _L, _P, _L, _P, _P, _P, _P, _P]),
+        "join_expand": (_I, [_P, _P, _L, _I, _P, _P, _L, _P, _P, _P, _P,
+                             _P]),
         "join_expand_scratch_bytes": (_L, [_L]),
     },
     "dense_stats": {
@@ -104,6 +112,16 @@ _SIGNATURES = {
         "partition_split": (_I, [_P, _P, _L, _I, _P, _P, _P, _P]),
         "partition_split_scratch_bytes": (_L, [_L, _I]),
         "partition_split_max_parts": (_I, []),
+    },
+    "find_pattern": {
+        "find_pattern": (_I, [_P, _P, _L, _I, _P, _I, _I, _P, _P]),
+    },
+    "build_matched": {
+        "build_matched": (_I, [_P, _P, _L, _P, _L, _P, _P, _P]),
+        "build_matched_scratch_bytes": (_L, [_L]),
+    },
+    "cross_expand": {
+        "cross_expand": (_I, [_P, _P, _L, _P, _P, _P, _P]),
     },
 }
 
@@ -141,7 +159,7 @@ def _stale(name: str) -> bool:
     return any(s.stat().st_mtime > built for s in srcs)
 
 
-def build(names=KERNELS, force: bool = False) -> None:
+def build(names=SOURCES, force: bool = False) -> None:
     """Compile every stale kernel library (every one with ``force``), all
     ``nvcc`` processes started together. Raises with the compiler's output
     when a build fails."""
@@ -217,7 +235,7 @@ def build_seconds() -> float:
         raise RuntimeError("kernels already loaded: a rebuild would not be "
                            "the code that runs")
     t0 = time.perf_counter()
-    build(KERNELS, force=True)
-    for n in KERNELS:
+    build(SOURCES, force=True)
+    for n in SOURCES:
         library(n)
     return time.perf_counter() - t0

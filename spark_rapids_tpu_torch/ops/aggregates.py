@@ -850,9 +850,9 @@ def segment_aggregate(spec: AggSpec, seg_ids: torch.Tensor, live: torch.Tensor,
                       num_segments: Optional[int] = None) -> Column:
     """Update-phase aggregation to ``num_segments`` slots (default
     ``capacity``): slot g reduces the live rows with ``seg_ids == g``; ids
-    outside the slots are dropped. Up to DENSE_MAX_SLOTS slots the ids may
-    come in any order (K9); above it they must be nondecreasing over the
-    live rows, as the sort route gives them (K4)."""
+    outside the slots are dropped. The ids may come in any order: up to
+    DENSE_MAX_SLOTS slots K9 takes them as they are; above it the live
+    rows are stable-sorted by id first, and K4 reduces the runs."""
     ns = capacity if num_segments is None else num_segments
     col = spec.column
     if col is not None and col.dtype == dt.STRING and \
@@ -861,7 +861,14 @@ def segment_aggregate(spec: AggSpec, seg_ids: torch.Tensor, live: torch.Tensor,
     if ns <= DENSE_MAX_SLOTS:
         return _slot_aggregate([spec], ("ids", seg_ids), ns, False,
                                live_mask=live)[0][0]
-    return segment_reduce(spec, seg_ids, live, ns)
+    ids = seg_ids.to(torch.int64)
+    use = live & (ids >= 0) & (ids < ns)
+    # stable: rows of one id keep their order, so FIRST/LAST hold
+    order = torch.sort(torch.where(use, ids, ns), stable=True).indices
+    if col is not None:
+        spec = spec._replace(column=Column(col.dtype, col.data[order],
+                                           col.validity[order]))
+    return segment_reduce(spec, seg_ids[order], use[order], ns)
 
 
 def _sorted_segment_aggregate(spec: AggSpec, seg_ids: torch.Tensor,

@@ -1,5 +1,7 @@
-"""Sort-merge equi-join kernels: the port of spark_rapids_tpu/ops/joins.py
-(inner, left semi and left anti joins).
+"""Sort-merge equi-join and cross-join kernels: the port of
+spark_rapids_tpu/ops/joins.py (inner, left outer, left semi and left anti
+joins, the unmatched build rows of a full outer join, and the cross
+product).
 
 As in the reference, every equality join is sort-merge:
 
@@ -12,16 +14,27 @@ As in the reference, every equality join is sort-merge:
   3. K7 :func:`_expand_indices` (csrc/join_expand.cu, twin
      :func:`_expand_indices_torch`) turns the ranges into one (stream row,
      build row) pair per output slot; torch indexing gathers the columns.
-     Semi and anti joins compact the stream side through K5 instead.
+     Its outer mode gives every live stream row at least one slot, with no
+     build row where it has no match (a left join). Semi and anti joins
+     compact the stream side through K5 instead.
+  4. For a full outer join, K14 :func:`build_matched`
+     (csrc/build_matched.cu, twin :func:`_build_matched_torch`) flags the
+     build rows some stream row matched, and :func:`unmatched_build_gather`
+     compacts the others through K5.
+
+A cross join pairs every left row with every right row: K15
+:func:`cross_expand` (csrc/cross_expand.cu, twin
+:func:`_cross_expand_torch`) writes each output slot's (left, right) row.
 
 Both sides' keys are encoded by K2 with the same descriptors (string pairs
 widened to the pair's width first), so lane equality is SQL key equality:
 NULL keys never match (the probe masks them), NaN equals NaN and -0.0
 equals +0.0. Two-phase sizing, as in the reference: :func:`join_match`
-leaves the total pair count on the device; the caller reads it, buckets an
-output capacity and calls :func:`join_gather`. A wrapper runs its twin
-only for tensors on the CPU; for a CUDA tensor it launches its kernel or
-raises.
+leaves the totals on the device (the pair count, and the live stream rows
+without a match, which a left join adds); the caller reads them in one
+copy, buckets an output capacity and calls :func:`join_gather`. A wrapper
+runs its twin only for tensors on the CPU; for a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -92,32 +105,40 @@ def sort_build(build_keys: Sequence[Column], n_build) -> BuildSide:
 
 
 class JoinMatch(NamedTuple):
-    """The reference's fields. ``build_matched`` (which build rows found a
-    match) is None: only full outer joins need it, and they are not
-    ported."""
+    """The reference's fields, and ``totals``. ``build_matched`` (which
+    build rows found a match, in sorted order) is None unless asked for:
+    only a full outer join needs it."""
     lo: torch.Tensor             # int32[stream_cap] first matching build row
     count: torch.Tensor          # int32[stream_cap] matches per stream row
     build_order: torch.Tensor    # int64[build_cap] build sort permutation
-    total_pairs: torch.Tensor    # int64 0-d: sum of count
+    total_pairs: torch.Tensor    # int64 0-d: sum of count (totals[0])
     build_matched: Optional[torch.Tensor]
+    # int64[2]: the pair count and the live stream rows with no match, one
+    # device -> host copy for an outer join's output size
+    totals: Optional[torch.Tensor] = None
 
 
 def join_match(build_keys: Sequence[Column], n_build,
                stream_keys: Sequence[Column], n_stream,
                stream_capacity: int,
-               build: Optional[BuildSide] = None) -> JoinMatch:
+               build: Optional[BuildSide] = None,
+               with_build_matched: bool = False) -> JoinMatch:
     """Phase 1: sort the build side (or take ``build``, sorted once by
     :func:`sort_build` from keys widened by :func:`pair_widths`), then find
-    each stream row's match range and count."""
+    each stream row's match range and count; with ``with_build_matched``
+    also flag the matched build rows (K14)."""
     widths = pair_widths(build_keys, stream_keys)
     if build is None:
         build = sort_build(widen_keys(build_keys, widths), n_build)
     s_lanes, s_valid = _normalize_words(widen_keys(stream_keys, widths))
     if s_lanes.shape[1] != stream_capacity:
         raise ValueError("stream keys are not at the stream capacity")
-    lo, count, total = join_probe(build.lanes, build.n_build, s_lanes,
-                                  s_valid, n_stream)
-    return JoinMatch(lo, count, build.order, total, None)
+    lo, count, totals = join_probe(build.lanes, build.n_build, s_lanes,
+                                   s_valid, n_stream)
+    matched = build_matched(lo, count, build.n_build,
+                            build.order.shape[0]) \
+        if with_build_matched else None
+    return JoinMatch(lo, count, build.order, totals[0], matched, totals)
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +148,12 @@ def join_match(build_keys: Sequence[Column], n_build,
 def join_probe(build_lanes: torch.Tensor, n_build, probe_lanes: torch.Tensor,
                probe_valid: Sequence[torch.Tensor], n_probe
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(lo int32[pcap], count int32[pcap], total int64 0-d): for each probe
+    """(lo int32[pcap], count int32[pcap], totals int64[2]): for each probe
     row the lower bound of its lanes in the first ``n_build`` sorted build
     lanes and the number of equal build rows; the count is 0 for rows at or
-    past ``n_probe`` and rows with a NULL key."""
+    past ``n_probe`` and rows with a NULL key. ``totals`` holds the sum of
+    count and the number of live probe rows (< ``n_probe``) whose count is
+    0."""
     device = probe_lanes.device
     if device.type == "cpu":
         return _join_probe_torch(build_lanes, n_build, probe_lanes,
@@ -152,7 +175,7 @@ def join_probe(build_lanes: torch.Tensor, n_build, probe_lanes: torch.Tensor,
         raise ValueError("probe validity must be contiguous bool[pcap]")
     lo = torch.empty(pcap, dtype=torch.int32, device=device)
     count = torch.empty(pcap, dtype=torch.int32, device=device)
-    total = torch.empty(1, dtype=torch.int64, device=device)
+    totals = torch.empty(2, dtype=torch.int64, device=device)
     valid_ptrs = (ctypes.c_void_p * max(1, len(probe_valid)))(
         *[v.data_ptr() for v in probe_valid])
     nb_t = K._count_tensor(n_build, device)
@@ -161,11 +184,11 @@ def join_probe(build_lanes: torch.Tensor, n_build, probe_lanes: torch.Tensor,
     rc = lib.join_probe(build_lanes.data_ptr(), build_lanes.shape[1],
                         nb_t.data_ptr(), probe_lanes.data_ptr(), pcap, nl,
                         valid_ptrs, len(probe_valid), np_t.data_ptr(),
-                        lo.data_ptr(), count.data_ptr(), total.data_ptr(),
+                        lo.data_ptr(), count.data_ptr(), totals.data_ptr(),
                         native.stream_ptr(device))
     native.check(rc, "join_probe")
     native.bump("join_probe")
-    return lo, count, total.reshape(())
+    return lo, count, totals
 
 
 def _lex_cmp(a_lanes: List[torch.Tensor], b_lanes: List[torch.Tensor]):
@@ -208,26 +231,32 @@ def _join_probe_torch(build_lanes, n_build, probe_lanes, probe_valid,
     pcap = probe_lanes.shape[1]
     lo = _search_bounds(build_lanes, n_build, probe_lanes, "left")
     hi = _search_bounds(build_lanes, n_build, probe_lanes, "right")
-    ok = torch.arange(pcap, device=probe_lanes.device) < n_probe
+    live = torch.arange(pcap, device=probe_lanes.device) < n_probe
+    ok = live
     for v in probe_valid:
         ok = ok & v
     count = torch.where(ok, hi - lo, 0).to(torch.int32)
-    return lo.to(torch.int32), count, count.sum(dtype=torch.int64)
+    totals = torch.stack([count.sum(dtype=torch.int64),
+                          (live & (count == 0)).sum(dtype=torch.int64)])
+    return lo.to(torch.int32), count, totals
 
 
 # ---------------------------------------------------------------------------
 # K7: join expansion
 # ---------------------------------------------------------------------------
 
-def _expand_indices(m: JoinMatch, out_capacity: int
+def _expand_indices(m: JoinMatch, out_capacity: int, outer: bool = False,
+                    n_stream=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(stream_idx int64, build_idx int64, live bool), each of
     ``out_capacity`` slots: slot i < total holds the i-th matched pair, the
     build row already mapped through the build order; the other slots hold
-    0 and are not live."""
+    0 and are not live. ``outer`` (a left join): every live stream row
+    (< ``n_stream``) takes max(count, 1) slots, and a row with no match
+    has build_idx -1."""
     device = m.count.device
     if device.type == "cpu":
-        return _expand_indices_torch(m, out_capacity)
+        return _expand_indices_torch(m, out_capacity, outer, n_stream)
     if device.type != "cuda":
         raise RuntimeError(f"join_expand: unsupported device {device}")
     n = m.count.shape[0]
@@ -241,27 +270,35 @@ def _expand_indices(m: JoinMatch, out_capacity: int
     stream_idx = torch.empty(out_capacity, dtype=torch.int64, device=device)
     build_idx = torch.empty(out_capacity, dtype=torch.int64, device=device)
     total = torch.empty(1, dtype=torch.int64, device=device)
+    ns_t = K._count_tensor(n_stream, device) if outer else None
     lib = native.library("join_expand")
     scratch = torch.empty(int(lib.join_expand_scratch_bytes(n)),
                           dtype=torch.uint8, device=device)
-    rc = lib.join_expand(m.count.data_ptr(), m.lo.data_ptr(), n,
+    rc = lib.join_expand(m.count.data_ptr(), m.lo.data_ptr(), n, int(outer),
+                         ns_t.data_ptr() if outer else None,
                          m.build_order.data_ptr(), out_capacity,
                          stream_idx.data_ptr(), build_idx.data_ptr(),
                          total.data_ptr(), scratch.data_ptr(),
                          native.stream_ptr(device))
     native.check(rc, "join_expand")
-    native.bump("join_expand")
+    native.bump("join_expand_outer" if outer else "join_expand")
     live = torch.arange(out_capacity, device=device) < total
     return stream_idx, build_idx, live
 
 
-def _expand_indices_torch(m: JoinMatch, out_capacity: int):
+def _expand_indices_torch(m: JoinMatch, out_capacity: int,
+                          outer: bool = False, n_stream=None):
     """Plain PyTorch twin of K7 (the reference's searchsorted over the
-    inclusive prefix sum)."""
+    inclusive prefix sum; in outer mode over max(count, 1) of the live
+    rows, as its left branch)."""
     device = m.count.device
     count = m.count.to(torch.int64)
-    cum = torch.cumsum(count, 0)
-    starts = cum - count
+    slots = count
+    if outer:
+        live_rows = torch.arange(count.shape[0], device=device) < n_stream
+        slots = torch.where(live_rows, torch.clamp(count, min=1), 0)
+    cum = torch.cumsum(slots, 0)
+    starts = cum - slots
     out_i = torch.arange(out_capacity, device=device)
     live = out_i < cum[-1]
     stream_idx = torch.clamp(torch.searchsorted(cum, out_i, right=True),
@@ -269,9 +306,104 @@ def _expand_indices_torch(m: JoinMatch, out_capacity: int):
     sorted_idx = m.lo.to(torch.int64)[stream_idx] + out_i - starts[stream_idx]
     build_idx = m.build_order[torch.clamp(sorted_idx, 0,
                                           m.build_order.shape[0] - 1)]
+    if outer:
+        build_idx = torch.where(count[stream_idx] == 0, -1, build_idx)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return (torch.where(live, stream_idx, zero),
             torch.where(live, build_idx, zero), live)
+
+
+# ---------------------------------------------------------------------------
+# K14: matched build rows
+# ---------------------------------------------------------------------------
+
+def build_matched(lo: torch.Tensor, count: torch.Tensor, n_build,
+                  build_capacity: int) -> torch.Tensor:
+    """bool[build_capacity], in the build's sorted order: True where some
+    stream row's match range [lo, lo + count) covers the row and the row
+    is live (< ``n_build``). The reference's +1/-1 marks and prefix sum
+    (joins.py:147-153)."""
+    device = count.device
+    if device.type == "cpu":
+        return _build_matched_torch(lo, count, n_build, build_capacity)
+    if device.type != "cuda":
+        raise RuntimeError(f"build_matched: unsupported device {device}")
+    n = count.shape[0]
+    if lo.shape != (n,) or lo.dtype != torch.int32 or \
+            count.dtype != torch.int32 or any(
+                not t.is_contiguous() or t.device != device
+                for t in (lo, count)):
+        raise ValueError("build_matched takes contiguous int32 lo/count on "
+                         "the device")
+    matched = torch.empty(build_capacity, dtype=torch.bool, device=device)
+    nb_t = K._count_tensor(n_build, device)
+    lib = native.library("build_matched")
+    scratch = torch.empty(
+        int(lib.build_matched_scratch_bytes(build_capacity)),
+        dtype=torch.uint8, device=device)
+    rc = lib.build_matched(lo.data_ptr(), count.data_ptr(), n,
+                           nb_t.data_ptr(), build_capacity,
+                           matched.data_ptr(), scratch.data_ptr(),
+                           native.stream_ptr(device))
+    native.check(rc, "build_matched")
+    native.bump("build_matched")
+    return matched
+
+
+def _build_matched_torch(lo, count, n_build, build_capacity: int):
+    """Plain PyTorch twin of K14."""
+    device = count.device
+    has = count > 0
+    start = lo.to(torch.int64)[has]
+    delta = torch.zeros(build_capacity + 1, dtype=torch.int32, device=device)
+    one = torch.ones(start.shape[0], dtype=torch.int32, device=device)
+    delta.index_add_(0, start, one)
+    delta.index_add_(0, start + count.to(torch.int64)[has], -one)
+    covered = torch.cumsum(delta[:-1], 0) > 0
+    return covered & (torch.arange(build_capacity, device=device) < n_build)
+
+
+# ---------------------------------------------------------------------------
+# K15: cross product
+# ---------------------------------------------------------------------------
+
+def cross_expand(n_left: int, n_right: int, out_capacity: int, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(left_idx int64, right_idx int64, total int64 0-d) over
+    ``out_capacity`` slots: slot i < n_left * n_right pairs left row
+    i // n_right with right row i % n_right; the other slots hold 0. The
+    counts are host ints; the product stays int64."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _cross_expand_torch(n_left, n_right, out_capacity, device)
+    if device.type != "cuda":
+        raise RuntimeError(f"cross_expand: unsupported device {device}")
+    li = torch.empty(out_capacity, dtype=torch.int64, device=device)
+    ri = torch.empty(out_capacity, dtype=torch.int64, device=device)
+    total = torch.empty(1, dtype=torch.int64, device=device)
+    counts = torch.tensor([n_left, n_right], dtype=torch.int32,
+                          device=device)         # one host -> device copy
+    rc = native.library("cross_expand").cross_expand(
+        counts.data_ptr(), counts.data_ptr() + 4, out_capacity,
+        li.data_ptr(), ri.data_ptr(), total.data_ptr(),
+        native.stream_ptr(device))
+    native.check(rc, "cross_expand")
+    native.bump("cross_expand")
+    return li, ri, total.reshape(())
+
+
+def _cross_expand_torch(n_left, n_right, out_capacity: int, device):
+    """Plain PyTorch twin of K15 (the reference's floor division and
+    remainder, in int64)."""
+    nl = torch.as_tensor(n_left, dtype=torch.int64, device=device)
+    nr = torch.as_tensor(n_right, dtype=torch.int64, device=device)
+    total = nl * nr
+    out_i = torch.arange(out_capacity, device=device)
+    live = out_i < total
+    nr1 = torch.clamp(nr, min=1)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return (torch.where(live, out_i // nr1, zero),
+            torch.where(live, out_i % nr1, zero), total.reshape(()))
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +418,14 @@ def join_gather(m: JoinMatch, stream_cols: Sequence[Column],
 
     join_type:
       inner      matched pairs (K7, then gathers at ``out_capacity``)
+      left       + one row per live stream row without a match, its build
+                 columns NULL (K7's outer mode)
       left_semi  stream rows with a match (K5 compaction, stream capacity)
       left_anti  live stream rows without a match (K5 compaction)
-    Returns (stream output columns, build output columns, device row
-    count)."""
+    A right join is a left join with the sides swapped, and a full outer
+    join a left join plus :func:`unmatched_build_gather`: the execs
+    compose them, as in the reference. Returns (stream output columns,
+    build output columns, device row count)."""
     stream_cap = m.count.shape[0]
     if join_type in ("left_semi", "left_anti"):
         s_live = torch.arange(stream_cap, device=m.count.device) < n_stream
@@ -299,12 +435,60 @@ def join_gather(m: JoinMatch, stream_cols: Sequence[Column],
         live = torch.arange(stream_cap, device=m.count.device) < cnt
         return ([K.gather_column(c, perm, out_valid=live)
                  for c in stream_cols], [], cnt)
+    if join_type == "left":
+        stream_idx, build_idx, live = _expand_indices(
+            m, out_capacity, outer=True, n_stream=n_stream)
+        b_live = live & (build_idx >= 0)
+        s_out = [K.gather_column(c, stream_idx, out_valid=live)
+                 for c in stream_cols]
+        bidx = torch.clamp(build_idx, min=0)
+        b_out = [K.gather_column(c, bidx, out_valid=b_live)
+                 for c in build_cols]
+        return s_out, b_out, m.totals.sum()
     if join_type != "inner":
         raise NotImplementedError(
-            f"{join_type} join is not ported to the PyTorch engine yet")
+            f"join_gather takes inner, left, left_semi or left_anti, not "
+            f"{join_type}: a right join is a left join with the sides "
+            "swapped, a full outer join a left join plus "
+            "unmatched_build_gather")
     stream_idx, build_idx, live = _expand_indices(m, out_capacity)
     s_out = [K.gather_column(c, stream_idx, out_valid=live)
              for c in stream_cols]
     b_out = [K.gather_column(c, build_idx, out_valid=live)
              for c in build_cols]
     return s_out, b_out, m.total_pairs
+
+
+def unmatched_build_gather(m: JoinMatch, build_cols: Sequence[Column],
+                           n_build) -> Tuple[List[Column], torch.Tensor]:
+    """The live build rows no stream row matched (``m.build_matched``,
+    K14), compacted through K5 in the build's sorted order and gathered
+    through the build order, at the build capacity; and their device
+    count. NULL-key build rows come out unmatched (a full outer join emits
+    them)."""
+    if m.build_matched is None:
+        raise ValueError("unmatched_build_gather needs join_match(..., "
+                         "with_build_matched=True)")
+    build_cap = m.build_order.shape[0]
+    device = m.build_order.device
+    b_live = torch.arange(build_cap, device=device) < n_build
+    perm, cnt = K.compaction_indices(b_live & ~m.build_matched)
+    orig_idx = m.build_order[perm]
+    live = torch.arange(build_cap, device=device) < cnt
+    return ([K.gather_column(c, orig_idx, out_valid=live)
+             for c in build_cols], cnt)
+
+
+def cross_join_gather(left_cols: Sequence[Column], n_left: int,
+                      right_cols: Sequence[Column], n_right: int,
+                      out_capacity: int
+                      ) -> Tuple[List[Column], List[Column], torch.Tensor]:
+    """Cartesian product: output slot i holds left row i // n_right and
+    right row i % n_right (K15), for i < n_left * n_right. Returns (left
+    output columns, right output columns, device row count, int64)."""
+    device = (list(left_cols) + list(right_cols))[0].device
+    li, ri, total = cross_expand(n_left, n_right, out_capacity, device)
+    live = torch.arange(out_capacity, device=li.device) < total
+    return ([K.gather_column(c, li, out_valid=live) for c in left_cols],
+            [K.gather_column(c, ri, out_valid=live) for c in right_cols],
+            total)

@@ -2,14 +2,17 @@
 
 Converts an analyzed logical plan into execs: scan, filter, project,
 aggregate (with the filter/project chain below it folded in; partial ->
-hash exchange -> final above more than one partition), equi-join
-(broadcast at or under ``autoBroadcastJoinThreshold``, else both sides
-hash-exchanged into a shuffled join), sort (a range exchange and local
-sorts above more than one partition), limit and repartition, then inserts
-the batch-coalescing transitions. These are the reference's plans without
-adaptive execution and without a device mesh. The port has no CPU engine
-yet, so anything else raises NotImplementedError naming the operator:
-nothing runs on the host in its place.
+hash exchange -> final above more than one partition), equi-join (inner,
+left, right, full, left semi, left anti; broadcast at or under
+``autoBroadcastJoinThreshold``, else both sides hash-exchanged into a
+shuffled join; a right join is a left join with the sides swapped under
+a column reorder), cross join (also a join with no equality key), sort (a
+range exchange and local sorts above more than one partition), limit and
+repartition, then inserts the batch-coalescing transitions. These are the
+reference's plans without adaptive execution and without a device mesh.
+The port has no CPU engine yet, so anything else raises
+NotImplementedError naming the operator: nothing runs on the host in its
+place.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 
 from .. import config as cfg
 from ..columnar import dtypes as dt
+from ..columnar.batch import ColumnarBatch
 from ..ops import expressions as ex
 from ..ops import predicates as pr
 from ..ops.cast import Cast
@@ -118,43 +122,63 @@ class Overrides:
                                        **kw)
 
     def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
-        """An equi-join: the left side streams, the right side is the
-        build. A build side whose size estimate is at or under
+        """A cross join, or a join with no condition or no equality key,
+        is a TpuCrossJoinExec (the condition a post-filter). An equi-join
+        streams the left side against the right side as the build; a
+        right join streams the right side against the left one as a left
+        join and reorders the columns. A residual condition is taken on
+        inner joins only: the reference runs the others on its host
+        engine, which the port does not have."""
+        lnames = p.children[0].schema.names()
+        rnames = p.children[1].schema.names()
+        lk, rk, residual = _extract_equi_keys(p.condition, lnames, rnames)
+        if residual is not None and p.how not in ("inner", "cross"):
+            raise NotImplementedError(
+                f"a residual condition on a {p.how} join is not ported to "
+                "the PyTorch engine (the reference runs it on its host "
+                "engine)")
+        left, right = kids
+        if p.how == "cross" or p.condition is None or not lk:
+            return ph.TpuCrossJoinExec(left, right, p.condition)
+        if p.how == "right":
+            inner = self._plan_equi_join(
+                right, left, "left", rk, lk, None,
+                build_stats=p.children[0].stats_bytes())
+            return _ReorderExec(inner, p.schema, len(rnames))
+        return self._plan_equi_join(left, right, p.how, lk, rk, residual,
+                                    build_stats=p.children[1].stats_bytes())
+
+    def _plan_equi_join(self, stream: ph.TpuExec, build: ph.TpuExec,
+                        how: str, stream_keys, build_keys, residual,
+                        build_stats: int) -> ph.TpuExec:
+        """A build side whose size estimate is at or under
         ``autoBroadcastJoinThreshold`` (-1: never) is broadcast; a larger
         one hash-exchanges both sides into a co-partitioned shuffled
         join."""
-        lk, rk, residual = _extract_equi_keys(
-            p.condition, p.children[0].schema.names(),
-            p.children[1].schema.names())
-        if not lk:
-            raise NotImplementedError(
-                f"{p.how} join without an equality key (a cross or "
-                "non-equi join) is not ported to the PyTorch engine yet")
-        left, right = kids
         threshold = int(self.conf.get(cfg.AUTO_BROADCAST_JOIN_THRESHOLD))
-        if 0 <= threshold and p.children[1].stats_bytes() <= threshold:
+        if 0 <= threshold and build_stats <= threshold:
             return ph.TpuSortMergeJoinExec(
-                left, TpuBroadcastExchangeExec(right), p.how, lk, rk,
-                residual)
+                stream, TpuBroadcastExchangeExec(build), how, stream_keys,
+                build_keys, residual)
         # murmur3 depends on the type: both sides hash one type per key.
         # As in the reference, the first pair with no common numeric type
         # ends the promotion; it and the pairs after it hash as they are.
-        pk_left, pk_right = list(lk), list(rk)
+        pk_stream, pk_build = list(stream_keys), list(build_keys)
         try:
-            for i, (a, b) in enumerate(zip(lk, rk)):
+            for i, (a, b) in enumerate(zip(stream_keys, build_keys)):
                 if a.dtype != b.dtype:
                     t = dt.promote(a.dtype, b.dtype)
-                    pk_left[i] = a if a.dtype == t else Cast(a, t)
-                    pk_right[i] = b if b.dtype == t else Cast(b, t)
+                    pk_stream[i] = a if a.dtype == t else Cast(a, t)
+                    pk_build[i] = b if b.dtype == t else Cast(b, t)
         except ValueError:
             pass
         n = self.shuffle_partitions
         return ph.TpuShuffledJoinExec(
-            TpuHashExchangeExec(left, n, pk_left,
+            TpuHashExchangeExec(stream, n, pk_stream,
                                 split_depth=self.split_depth),
-            TpuHashExchangeExec(right, n, pk_right,
+            TpuHashExchangeExec(build, n, pk_build,
                                 split_depth=self.split_depth),
-            p.how, lk, rk, residual)
+            how, stream_keys, build_keys, residual)
 
     def _insert_coalesce(self, node: ph.TpuExec) -> ph.TpuExec:
         """Shuffle and broadcast exchanges are exempt: they already emit
@@ -169,6 +193,28 @@ class Overrides:
                     child, goal=goal, target_rows=self.batch_rows)
             node.children[i] = child
         return node
+
+
+class _ReorderExec(ph.TpuExec):
+    """The columns of a right join planned as a swapped left join, put
+    back in the right join's order (the left side's columns first)."""
+
+    def __init__(self, child: ph.TpuExec, schema: dt.Schema, n_right: int):
+        super().__init__(child)
+        self._schema = schema
+        self.n_right = n_right
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self):
+        return [self._map(p) for p in self.children[0].execute()]
+
+    def _map(self, part):
+        for b in part:
+            cols = b.columns[self.n_right:] + b.columns[:self.n_right]
+            yield ColumnarBatch(self._schema, cols, b.num_rows_raw)
 
 
 def _extract_equi_keys(cond, lnames, rnames):

@@ -697,13 +697,19 @@ class TpuHashAggregateExec(TpuExec):
 class TpuSortMergeJoinExec(TpuExec):
     """Equality join, broadcast form: the build side (the right child) is
     one batch, sorted by its keys once per execution; each stream (left)
-    batch is probed against it (K6), and an inner join expands the pairs
-    (K7) at an output capacity sized by one device -> host read of the
-    pair count per stream batch. Semi and anti joins compact the stream
-    batch (K5). An inner join's residual condition is a post-filter (K5).
+    batch is probed against it (K6). An inner join expands the pairs (K7)
+    at an output capacity sized by one device -> host read of the pair
+    count per stream batch; a left join expands every live stream row to
+    at least one slot (K7's outer mode), sized by one read of the pair
+    count and the unmatched stream rows together. Semi and anti joins
+    compact the stream batch (K5). A full outer join joins the whole
+    stream side merged into one batch as a left join, then appends the
+    build rows no stream row matched (K14, K5) with NULL left columns; it
+    has one output partition. An inner join's residual condition is a
+    post-filter (K5); on other join types the planner refuses one.
     """
 
-    JOIN_TYPES = ("inner", "left_semi", "left_anti")
+    JOIN_TYPES = ("inner", "left", "full", "left_semi", "left_anti")
 
     def __init__(self, left: TpuExec, right: TpuExec, how: str,
                  left_keys: List[ex.Expression],
@@ -720,17 +726,32 @@ class TpuSortMergeJoinExec(TpuExec):
         self.how = how
         self.left_keys = [bind_refs(e, left.schema) for e in left_keys]
         self.right_keys = [bind_refs(e, right.schema) for e in right_keys]
-        if how in ("left_semi", "left_anti"):
-            self._out_schema = left.schema
-        else:
-            self._out_schema = dt.Schema(list(left.schema.fields) +
-                                         list(right.schema.fields))
-        self.condition = bind_refs(condition, self._out_schema) \
+        self._out_schema = self._compute_schema()
+        self.condition = bind_refs(condition, dt.Schema(
+            list(left.schema.fields) + list(right.schema.fields))) \
             if condition is not None else None
+
+    def _compute_schema(self) -> dt.Schema:
+        """The reference's output nullability: a full join's left columns
+        and a left or full join's right columns may be NULL."""
+        left, right = self.children[0].schema, self.children[1].schema
+        if self.how in ("left_semi", "left_anti"):
+            return left
+        lf = [dt.Field(f.name, f.dtype, self.how == "full" or f.nullable)
+              for f in left.fields]
+        rf = [dt.Field(f.name, f.dtype,
+                       self.how in ("left", "full") or f.nullable)
+              for f in right.fields]
+        return dt.Schema(lf + rf)
 
     @property
     def schema(self):
         return self._out_schema
+
+    @property
+    def output_partitions(self) -> int:
+        return 1 if self.how == "full" else \
+            self.children[0].output_partitions
 
     def children_coalesce_goal(self, i: int):
         # the stream side in target-size batches, the build side whole
@@ -739,8 +760,19 @@ class TpuSortMergeJoinExec(TpuExec):
     def execute(self) -> List[Partition]:
         # the right child is a TpuBroadcastExchangeExec
         build = self.children[1].materialize()
+        stream_parts = self.children[0].execute()
+        if self.how == "full":
+            # a build row is unmatched only if no stream row of the whole
+            # stream side matched it: one pass over one merged batch
+            stream_parts = [self._merged(stream_parts)]
         return [self._join_part(p, build, self.children[1].release)
-                for p in self.children[0].execute()]
+                for p in stream_parts]
+
+    def _merged(self, parts: List[Partition]) -> Partition:
+        """Every stream batch of ``parts`` in one batch (possibly
+        empty)."""
+        yield concat_batches(self.children[0].schema,
+                             [b for p in parts for b in p], self.device)
 
     def _join_part(self, part: Partition, build: ColumnarBatch,
                    release=None) -> Partition:
@@ -763,29 +795,43 @@ class TpuSortMergeJoinExec(TpuExec):
                         build.num_rows_raw)
                 m = join_k.join_match(bkeys, build.num_rows_raw, skeys,
                                       batch.num_rows_raw, batch.capacity,
-                                      build=side)
-                out = self._join_finish(build, batch, m)
-                if out is not None:
-                    yield out
+                                      build=side,
+                                      with_build_matched=self.how == "full")
+                yield from self._join_finish(build, batch, m)
         finally:
             if release is not None:
                 release()
 
     def _join_finish(self, build: ColumnarBatch, batch: ColumnarBatch,
-                     m: join_k.JoinMatch) -> Optional[ColumnarBatch]:
+                     m: join_k.JoinMatch) -> List[ColumnarBatch]:
         if self.how in ("left_semi", "left_anti"):
             s_out, _b, cnt = join_k.join_gather(
                 m, batch.columns, build.columns, batch.capacity, self.how,
                 n_stream=batch.num_rows_raw)
-            return ColumnarBatch(self._out_schema, s_out, cnt)
-        total = int(m.total_pairs)      # the stream batch's one host read
+            return [ColumnarBatch(self._out_schema, s_out, cnt)]
+        if self.how == "inner":
+            total = int(m.total_pairs)  # the stream batch's one host read
+            how = "inner"
+        else:
+            # pairs + live stream rows with no match, in one host read
+            total = sum(m.totals.tolist())
+            how = "left"
         s_out, b_out, _cnt = join_k.join_gather(
-            m, batch.columns, build.columns, bucket(max(total, 1)),
-            "inner", n_stream=batch.num_rows_raw)
+            m, batch.columns, build.columns, bucket(max(total, 1)), how,
+            n_stream=batch.num_rows_raw)
         out = ColumnarBatch(self._out_schema, s_out + b_out, total)
         if self.condition is not None:
-            return filter_batch(self.condition, out)
-        return out
+            out = filter_batch(self.condition, out)
+        outs = [out] if out is not None else []
+        if self.how == "full":
+            un_cols, ucnt = join_k.unmatched_build_gather(
+                m, build.columns, build.num_rows_raw)
+            ucap = un_cols[0].capacity if un_cols else build.capacity
+            left_nulls = [Column.full_null(f.dtype, ucap, self.device)
+                          for f in self.children[0].schema]
+            outs.append(ColumnarBatch(self._out_schema,
+                                      left_nulls + un_cols, ucnt))
+        return outs
 
     def _node_string(self):
         cond = f" residual={self.condition!r}" \
@@ -799,8 +845,15 @@ class TpuShuffledJoinExec(TpuSortMergeJoinExec):
     joins build partition i only. Each build partition is one batch,
     sorted once (K2) and probed by its stream partition's batches (K6,
     K7). The build side is never whole on the device, one partition at a
-    time is. (The reference's runtime broadcast switch and skew split are
-    adaptive execution, not ported.)"""
+    time is. A full outer join is right per partition pair (the keys'
+    partitions are disjoint): each stream partition is merged into one
+    batch, joined even when it is empty, so every build row of its
+    partition comes out. (The reference's runtime broadcast switch and
+    skew split are adaptive execution, not ported.)"""
+
+    @property
+    def output_partitions(self) -> int:
+        return self.children[0].output_partitions
 
     def children_coalesce_goal(self, i: int):
         return None          # both children are exchanges
@@ -817,7 +870,49 @@ class TpuShuffledJoinExec(TpuSortMergeJoinExec):
                      build_part: Partition) -> Partition:
         build = concat_batches(self.children[1].schema, list(build_part),
                                self.device)
+        if self.how == "full":
+            stream_part = self._merged([stream_part])
         yield from self._join_part(stream_part, build)
+
+
+class TpuCrossJoinExec(TpuExec):
+    """Cartesian product: the right side whole in one batch, each left
+    batch crossed with it (K15 indices, then gathers); the condition, if
+    any, is a post-filter (K5), and empty outputs are dropped."""
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 condition: Optional[ex.Expression] = None):
+        super().__init__(left, right)
+        self._out_schema = dt.Schema(
+            list(left.schema.fields) + list(right.schema.fields))
+        self.condition = bind_refs(condition, self._out_schema) \
+            if condition is not None else None
+
+    @property
+    def schema(self):
+        return self._out_schema
+
+    def execute(self) -> List[Partition]:
+        right = concat_batches(
+            self.children[1].schema,
+            [b for p in self.children[1].execute() for b in p], self.device)
+        return [self._map(p, right) for p in self.children[0].execute()]
+
+    def _map(self, part: Partition, right: ColumnarBatch) -> Partition:
+        for batch in part:
+            resolve_counts([batch])
+            total = batch.num_rows * right.num_rows
+            if total == 0:
+                continue
+            l_out, r_out, cnt = join_k.cross_join_gather(
+                batch.columns, batch.num_rows, right.columns,
+                right.num_rows, bucket(total))
+            out = ColumnarBatch(self._out_schema, l_out + r_out, total)
+            if self.condition is not None:
+                out = filter_batch(self.condition, out)
+                if out is None or out.num_rows == 0:
+                    continue
+            yield out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""TPC-H q1, q3, q4, q6 and q12 on the port's DataFrame API: the same
-expressions as benchmarks/queries.py (which builds them on the JAX
-package's API), and ``headline``: the session form of the root bench.py's
+"""TPC-H q1, q3, q4, q6, q12, q13, q11 and q15 on the port's DataFrame API:
+the same expressions as benchmarks/queries.py (which builds them on the
+JAX package's API), and ``headline``: the session form of the root bench.py's
 pipeline (filter -> project -> dense-range group-by) over its data
 (:func:`build_inputs`, :func:`headline_table`).
 
@@ -86,6 +86,56 @@ def q12(t):
             .orderBy("l_shipmode"))
 
 
+def q13(t):
+    """Customer distribution: left outer join (right side pre-filtered on
+    the comment predicate) + two-level aggregation."""
+    o = t["orders"].filter(
+        ~(col("o_comment").contains("special") &
+          col("o_comment").contains("requests")))
+    per_cust = (t["customer"]
+                .join(o, on=(col("c_custkey") == col("o_custkey")),
+                      how="left")
+                .groupBy("c_custkey")
+                .agg(F.count("o_orderkey").alias("c_count")))
+    return (per_cust.groupBy("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .orderBy(col("custdist").desc(), col("c_count").desc()))
+
+
+def q11(t):
+    """Important stock: per-part value vs a scalar fraction of the
+    national total (cross-join scalar subquery)."""
+    n = t["nation"].filter(col("n_name") == lit("GERMANY"))
+    s = t["supplier"].join(n, on=(col("s_nationkey") == col("n_nationkey")))
+    ps = t["partsupp"].join(s, on=(col("ps_suppkey") == col("s_suppkey")))
+    value = col("ps_supplycost") * col("ps_availqty")
+    per_part = ps.groupBy("ps_partkey").agg(F.sum(value).alias("value"))
+    total = ps.agg((F.sum(value) * lit(0.0001)).alias("threshold"))
+    return (per_part.crossJoin(total)
+            .filter(col("value") > col("threshold"))
+            .select(col("ps_partkey"), col("value"))
+            .orderBy(col("value").desc(), col("ps_partkey").asc()))
+
+
+def q15(t):
+    """Top supplier: revenue view + scalar max (cross join), with the
+    reference's 1e-6 relative band on the float max-equality."""
+    l = t["lineitem"].filter((col("l_shipdate") >= lit(_D_1994_01_01)) &
+                             (col("l_shipdate") < lit(_D_1994_01_01 + 90)))
+    revenue = (l.groupBy("l_suppkey")
+               .agg(F.sum(col("l_extendedprice") *
+                          (lit(1.0) - col("l_discount")))
+                    .alias("total_revenue")))
+    max_rev = revenue.agg(F.max("total_revenue").alias("max_revenue"))
+    return (t["supplier"]
+            .join(revenue, on=(col("s_suppkey") == col("l_suppkey")))
+            .crossJoin(max_rev)
+            .filter(col("total_revenue") >=
+                    col("max_revenue") * lit(1.0 - 1e-6))
+            .select(col("s_suppkey"), col("s_name"), col("total_revenue"))
+            .orderBy("s_suppkey"))
+
+
 def q4(t):
     """Order priority checking: EXISTS subquery -> left semi join."""
     o = t["orders"].filter((col("o_orderdate") >= lit(_D_1994_01_01)) &
@@ -137,15 +187,20 @@ def headline(t):
                               F.avg("p").alias("avg_p"))
 
 
-QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12,
-           "headline": headline}
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12, "q13": q13,
+           "q11": q11, "q15": q15, "headline": headline}
 # the tables each query reads
 TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q3": ("customer", "orders", "lineitem"),
-          "q12": ("orders", "lineitem"), "q4": ("orders", "lineitem")}
+          "q12": ("orders", "lineitem"), "q4": ("orders", "lineitem"),
+          "q13": ("customer", "orders"),
+          "q11": ("nation", "supplier", "partsupp"),
+          "q15": ("supplier", "lineitem")}
 
 
 def table_schema(columns) -> dict:
     """SQL types numpy TPC-H columns need beyond their numpy dtypes: every
-    ``*date`` column is a DATE."""
+    ``*date`` column is a DATE. The other columns of lineitem, orders,
+    customer, supplier, partsupp and nation (keys, quantities, prices,
+    names, comments) keep the types their numpy arrays give them."""
     return {name: "date" for name in columns if name.endswith("date")}

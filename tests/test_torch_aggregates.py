@@ -269,6 +269,33 @@ def test_segment_aggregate_shuffled_few_segments_matches_jax(tname):
         assert_column_close(got, want, 1e-12, f"{tname}/few/{name}")
 
 
+MANY_SEGMENTS = 5000           # above DENSE_MAX_SLOTS: the sort route
+MANY_CAP = 1 << 14
+
+
+@pytest.mark.parametrize("tname", TYPES)
+def test_segment_aggregate_shuffled_many_segments_matches_jax(tname):
+    """Above DENSE_MAX_SLOTS segments the ids may still come in any order,
+    as the reference's scatter takes them: the port stable-sorts the live
+    rows by id and reduces the runs (K4 on the card). Ids out of range
+    and dead rows are dropped; FIRST/LAST keep row order in a segment."""
+    assert MANY_SEGMENTS > PA.DENSE_MAX_SLOTS
+    rng = np.random.default_rng(zlib.crc32(f"many{tname}".encode()))
+    n = MANY_CAP - 300
+    jc, pc = _pair(_values(rng, tname, "rows", n), tname, MANY_CAP)
+    seg = rng.integers(0, MANY_SEGMENTS, MANY_CAP).astype(np.int32)
+    seg[rng.random(MANY_CAP) < 0.02] = -1
+    seg[rng.random(MANY_CAP) < 0.02] = MANY_SEGMENTS + 3
+    live = (np.arange(MANY_CAP) < n) & (rng.random(MANY_CAP) < 0.9)
+    for name, jspec, pspec in _specs(jc, pc):
+        want = JA.segment_aggregate(jspec, seg, live, MANY_CAP,
+                                    num_segments=MANY_SEGMENTS)
+        got = PA.segment_aggregate(pspec, torch.from_numpy(seg),
+                                   torch.from_numpy(live), MANY_CAP,
+                                   num_segments=MANY_SEGMENTS)
+        assert_column_close(got, want, 1e-12, f"{tname}/many/{name}")
+
+
 def _strings(rng, n: int = N):
     words = np.array(["", "a", "ab", "abc", "b", "ba", "zz", "A", "a\x00",
                       "MAIL", "SHIP", "abcdefghij"])

@@ -167,9 +167,14 @@ def test_join_gather_matches_jax(case, how):
 
 
 def test_join_gather_refuses_unported_join_types(case):
-    with pytest.raises(NotImplementedError, match="left join"):
-        PJ.join_gather(case["pm"], case["p_stream"], case["p_build"], 128,
-                       "left", n_stream=case["ns"])
+    """join_gather takes inner, left, left_semi and left_anti; right and
+    full outer joins are composed by the execs (a swapped left join; a
+    left join plus unmatched_build_gather), so the function refuses
+    them."""
+    for how in ("right", "full"):
+        with pytest.raises(NotImplementedError, match="join_gather takes"):
+            PJ.join_gather(case["pm"], case["p_stream"], case["p_build"],
+                           128, how, n_stream=case["ns"])
 
 
 def test_build_filling_its_capacity_matches_a_numpy_oracle():

@@ -1,10 +1,10 @@
-"""The PyTorch port's slices end to end: TPC-H q6, q1, q3, q12 and q4
-through the port's TpuSession -> DataFrame -> planner -> execs on the CPU,
-against the JAX package's engine on the same TPC-H data. Rows must be
-equal, floats within 1e-12 relative. Also: the port imports neither jax
-nor the JAX package, refuses to start without CUDA unless asked for the
-CPU, picks the JAX engine's join strategy (broadcast at or under
-autoBroadcastJoinThreshold, else the shuffled plan, operator for
+"""The PyTorch port's slices end to end: TPC-H q6, q1, q3, q12, q4, q13,
+q11 and q15 through the port's TpuSession -> DataFrame -> planner -> execs
+on the CPU, against the JAX package's engine on the same TPC-H data. Rows
+must be equal, floats within 1e-12 relative. Also: the port imports
+neither jax nor the JAX package, refuses to start without CUDA unless
+asked for the CPU, picks the JAX engine's join strategy (broadcast at or
+under autoBroadcastJoinThreshold, else the shuffled plan, operator for
 operator), keeps warm runs in its scan cache, and fails loudly on
 operators it has not ported."""
 
@@ -169,6 +169,61 @@ def test_join_query_on_the_shuffled_plan_matches_jax_engine(
     assert "TpuBroadcastExchangeExec" not in tree
     assert "TpuHashAggregateExec[partial]" in session.last_plan() \
         .tree_string()
+
+
+# ---------------------------------------------------------------------------
+# Outer and cross joins, string predicates: q13, q11, q15
+# ---------------------------------------------------------------------------
+
+OUTER_QUERIES = ("q13", "q11", "q15")
+# the JAX engine's whole-stage fusion (not ported) off for plan comparison
+NO_FUSION = {"spark.rapids.tpu.sql.fusion.wholeStage": "false"}
+
+
+@pytest.fixture(scope="module")
+def tpch_outer(tpch):
+    return {**tpch, "supplier": datagen.gen_supplier(SF),
+            "partsupp": datagen.gen_partsupp(SF),
+            "nation": datagen.gen_nation()}
+
+
+@pytest.fixture(scope="module")
+def jax_outer_rows(tpch_outer):
+    """q13, q11 and q15 once on the JAX engine (their rows do not depend
+    on the join form)."""
+    session = _jax_session()
+    t = {name: session.createDataFrame(datagen.to_arrow(cols))
+         for name, cols in tpch_outer.items()}
+    return {name: getattr(jax_queries, name)(t).collect()
+            for name in OUTER_QUERIES}
+
+
+@pytest.mark.parametrize("form,conf", [
+    ("broadcast", {}),
+    ("shuffled", {**NO_BROADCAST,
+                  "spark.rapids.tpu.sql.shuffle.partitions": 8})])
+@pytest.mark.parametrize("query", OUTER_QUERIES)
+def test_outer_and_cross_join_query_matches_jax_engine(
+        tpch_outer, jax_outer_rows, query, form, conf):
+    """q13 (a left outer join under a string-predicate filter), q11 and
+    q15 (cross-joined scalar subqueries): rows equal to the JAX engine's,
+    and the plan's operator tree equal to the JAX engine's plan in the
+    same join form."""
+    session, t = _port_tpch(tpch_outer, **conf)
+    got = port_queries.QUERIES[query](t).collect()
+    assert len(got) == len(jax_outer_rows[query]) > 0
+    assert_rows_equal(got, jax_outer_rows[query])
+    tree = session.last_plan().operator_tree()
+    js = _jax_session(**conf, **NO_FUSION)
+    jt = {name: js.createDataFrame(datagen.to_arrow(cols))
+          for name, cols in tpch_outer.items()}
+    assert tree == _jax_plan(js, getattr(jax_queries, query)(jt))
+    if query == "q13":
+        joins = _join_nodes(session.last_plan())
+        assert [j.how for j in joins] == ["left"]
+        assert ("TpuShuffledJoinExec" in tree) == (form == "shuffled")
+    else:
+        assert "TpuCrossJoinExec" in tree
 
 
 def _build_sizes(plan, prune, join_cls):
@@ -416,23 +471,38 @@ def test_session_without_cuda_and_without_cpu_asked_raises(monkeypatch):
 
 
 def test_unported_operators_fail_loudly(tpch):
+    """What the port plans runs, and what it does not plan raises
+    NotImplementedError: a residual condition on an outer join, a join on
+    column names, DISTINCT."""
     session, t = _port_tpch(tpch)
-    l, o = t["lineitem"], t["orders"]
+    l, o, c = t["lineitem"], t["orders"], t["customer"]
     on = F.col("o_orderkey") == F.col("l_orderkey")
-    for how in ("left", "full", "right"):
-        with pytest.raises(NotImplementedError, match=f"{how} join"):
-            o.join(l, on=on, how=how).collect()
-    with pytest.raises(NotImplementedError, match="cross join"):
-        o.join(l, how="cross").collect()
-    with pytest.raises(NotImplementedError, match="without an equality"):
-        o.join(l, on=F.col("o_orderdate") < F.col("l_shipdate")).collect()
-    with pytest.raises(NotImplementedError, match="column names"):
-        o.join(l, on="o_orderkey")
-    # the one join form the port plans: a broadcast build side
-    o.join(l, on=on).agg(F.count("*")).collect()
+    # the outer joins run; their row counts against numpy
+    ok, lk = tpch["orders"]["o_orderkey"], tpch["lineitem"]["l_orderkey"]
+    pairs = int(np.isin(lk, ok).sum())
+    lonely_o = int((~np.isin(ok, lk)).sum())
+    lonely_l = int((~np.isin(lk, ok)).sum())
+    want = {"inner": pairs, "left": pairs + lonely_o,
+            "right": pairs + lonely_l, "full": pairs + lonely_o + lonely_l}
+    for how, n in want.items():
+        assert o.join(l, on=on, how=how).agg(F.count("*")).collect() == \
+            [(n,)], how
     joins = _join_nodes(session.last_plan())
     assert len(joins) == 1 and all(
         isinstance(j.children[1], TpuBroadcastExchangeExec) for j in joins)
+    # cross and non-equi joins run, on small filtered inputs
+    o20 = o.filter(F.col("o_orderkey") <= 20)
+    c10 = c.filter(F.col("c_custkey") <= 10)
+    assert o20.crossJoin(c10).agg(F.count("*")).collect() == [(200,)]
+    oc = tpch["orders"]["o_custkey"][:20]
+    assert o20.join(c10, on=F.col("o_custkey") < F.col("c_custkey")) \
+        .agg(F.count("*")).collect() == \
+        [(int((oc[:, None] < np.arange(1, 11)[None, :]).sum()),)]
+    with pytest.raises(NotImplementedError, match="residual condition"):
+        o.join(l, on=on & (F.col("o_orderdate") < F.col("l_shipdate")),
+               how="left").collect()
+    with pytest.raises(NotImplementedError, match="column names"):
+        o.join(l, on="o_orderkey")
     with pytest.raises(NotImplementedError, match="DISTINCT"):
         l.agg(F._agg("count", "l_orderkey", distinct=True)).collect()
     # string MIN/MAX are ported: what used to raise here now runs

@@ -7,9 +7,9 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
      timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel (K1-K15, and K7's outer mode) against its plain PyTorch
-     twin on the card, at the main path's shapes and at edge cases, with
-     the stated tolerance,
+  3. each kernel (K1-K18, K7's outer mode and K13's locate mode) against
+     its plain PyTorch twin on the card, at the main path's shapes and at
+     edge cases, with the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
      single PyTorch call computing the same function; K8-K10 are timed at
      the headline's shape (64 M rows) and at one 2^20-row batch, and K10's
@@ -21,26 +21,41 @@ Phases, each printing one JSON line:
      K7's outer mode and K14 (build_matched) at one partition of q13's
      join, K15 (cross_expand) with empty sides, and once the main path
      has run, at the shapes its cold runs of q11 and q15 gave K15
-     (recorded where the engine calls the wrapper);
-  4. the main path: TPC-H q6, q1, q3, q12, q4, q13, q11 and q15 through
+     (recorded where the engine calls the wrapper); K16 (string_map), K17
+     (string_slice), K18 (string_place) and K13's locate mode over random
+     UTF-8 rows (1-4-byte characters, leading continuation bytes, junk
+     past the lengths, NULL and dead rows) at widths 8 to 256, and timed
+     over o_comment (K16, K18, locate) and q22's c_phone batch (K17);
+     then K2, K3 and K11 at 9 and 17 key columns (their wrappers split the
+     keys into blocks of 8) against their one-pass twins, and K12 at 5000
+     and 65536 partitions (its device-memory counters);
+  4. the main path: TPC-H q6, q1, q3, q12, q4, q13, q11, q15, q22, q2,
+     q17, q5, q10, q14, q18, q19 and q20 through
      TpuSession -> DataFrame -> collect on benchmarks/datagen.py lineitem,
-     orders, customer, supplier, partsupp and nation data at scale factor
-     --sf, then the root bench.py's headline
+     orders, customer, supplier, partsupp, nation, part and region data at
+     scale factor --sf, then the root bench.py's headline
      (filter -> project -> dense-range group-by) over its 64 M rows, one
      cold and three hot runs each, held to numpy oracles computed
      independently from the same arrays (sort + searchsorted joins,
-     bincount sums); the launch counters are zeroed just before and read
+     bincount sums), then the string expressions over customer and part
+     (string_exprs: length, case maps, substrings, concat, trims, pads,
+     locate, LIKE, replace), each column held to a Python oracle of
+     Spark's rules, with the host passes of the general LIKE and replace
+     counted; the launch counters are zeroed just before and read
      just after, and every kernel of each query's path must have launched
      in its cold run; the warm runs must be served from the device scan
      cache (no column uploaded or evicted, no cache entry refused); q3,
      q12, q4 and q13 must run on the reference's shuffled plan (hash
      exchanges, shuffled joins, a range exchange under the sort; q13's
-     join a left outer one), q11 and q15 on a cross join;
+     join a left outer one), q11 and q15 on a cross join, q22 on a cross
+     join and a shuffled left anti join;
      then, outside the counted run, the headline and q1 at update-window
      depths 48, 8 and 1 (hot time and device peak at each), q3 and q4
-     in the shuffled and the broadcast join form (join_form_ab), and the
-     right and full outer joins in both forms (outer_forms: q13 written
-     as a right join, customer full outer join the filtered orders);
+     in the shuffled and the broadcast join form (join_form_ab), q11 at
+     the TPC-H fraction 0.0001 / SF (q11_scaled, which must return rows),
+     and the right and full outer joins in both forms (outer_forms: q13
+     written as a right join, customer full outer join the filtered
+     orders);
   5. the port bench's hand-built headline pipeline, once at 64 M rows,
      validated against the numpy oracle.
 Then the kernel summary line, the card line and, last, the result line
@@ -1572,6 +1587,354 @@ def check_k13(device, rng) -> dict:
     }
 
 
+# -- K13's locate mode, K16-K18: string expressions ---------------------------
+
+# characters of 1 to 4 UTF-8 bytes, spaces among them (the trims)
+UTF8_POOL = ("a", "b", "l", "x", "Z", " ", "-", "é", "ß", "漢", "€", "😀",
+             "𝄞")
+STRING_WIDTHS = (8, 16, 32, 64, 256)
+# c_phone's bucket (15 bytes): q22's substring batch
+PHONE_WIDTH = 16
+
+
+def utf8_rows(rng, n: int, cap: int, w: int, device, null_frac=0.1):
+    """A string column of ``cap`` rows of width ``w``: the first ``n``
+    random UTF-8 strings of 1-4-byte characters up to ``w`` bytes, some
+    starting with continuation bytes, ``null_frac`` NULL (length 0); junk
+    bytes past every length; the dead rows past ``n`` junk with random
+    lengths and invalid."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    data = rng.integers(1, 256, (cap, w)).astype(np.uint8)
+    lengths = rng.integers(0, w + 1, cap).astype(np.int32)
+    valid = np.zeros(cap, np.bool_)
+    valid[:n] = rng.random(n) >= null_frac
+    pool = [c.encode("utf-8") for c in UTF8_POOL]
+    for i in range(n):
+        if not valid[i]:
+            lengths[i] = 0
+            continue
+        limit = int(rng.integers(0, w + 1))
+        b = bytearray()
+        if rng.random() < 0.05:
+            b.append(0x80 | int(rng.integers(0, 64)))
+        for k in rng.integers(0, len(pool), w):
+            c = pool[k]
+            if len(b) + len(c) > limit:
+                break
+            b += c
+        data[i, :len(b)] = np.frombuffer(bytes(b), np.uint8)
+        lengths[i] = len(b)
+    return Column(dt.STRING, torch.from_numpy(data).to(device),
+                  torch.from_numpy(valid).to(device),
+                  torch.from_numpy(lengths).to(device))
+
+
+def phone_batch(device):
+    """One 2^20-row batch of c_phone as datagen's gen_customer draws it
+    (SF 10's 1.5 M customers come in two), in its 16-byte bucket."""
+    from benchmarks import datagen
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    cap = 1 << 20
+    phones = datagen.gen_customer(7.0)["c_phone"][:cap]
+    return Column.from_numpy(phones, dt.STRING, capacity=cap, device=device,
+                             width=PHONE_WIDTH)
+
+
+def _string_cols_err(got, want, what: str) -> float:
+    for g, w, part in zip(got, want, ("bytes", "lengths", "validity")):
+        tensor_err(g, w, f"{what} {part}")
+    return 0.0
+
+
+def check_k16(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import strings as S
+    checks = 0
+    for w in STRING_WIDTHS:
+        col = utf8_rows(rng, 3000, 4096, w, device)
+        for mode in (S.LENGTH, S.UPPER, S.LOWER, S.INITCAP):
+            tensor_err(S.string_map(col.data, col.lengths, col.validity,
+                                    mode),
+                       S._string_map_torch(col.data, col.lengths,
+                                           col.validity, mode),
+                       f"K16 w={w} mode {mode}")
+            checks += 1
+    cap = 1 << 20
+    col = _comments(rng, cap - 1234, cap, device, null_frac=0.05)
+    for mode in (S.LENGTH, S.UPPER, S.INITCAP):
+        tensor_err(S.string_map(col.data, col.lengths, col.validity, mode),
+                   S._string_map_torch(col.data, col.lengths, col.validity,
+                                       mode), f"K16 o_comment mode {mode}")
+        checks += 1
+    w = COMMENT_WIDTH
+    return {
+        "name": "string_map", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (bytes, counts)", "rows": cap, "width": w,
+        "timed": "UPPER over one 2^20-row batch of o_comment",
+        "ms": time_ms(lambda: S.string_map(col.data, col.lengths,
+                                           col.validity, S.UPPER)),
+        "plain_ms": time_ms(lambda: S._string_map_torch(
+            col.data, col.lengths, col.validity, S.UPPER)),
+        "ms_length": time_ms(lambda: S.string_map(
+            col.data, col.lengths, col.validity, S.LENGTH)),
+        "library_ms": None,        # no single PyTorch call computes it
+        # the byte rows read and written once
+        "bound_ms": bound_ms(2 * cap * w),
+    }
+
+
+# (pos, length) pairs of the substring checks: positive, zero and negative
+# positions (one past the start of the string: Spark's end-first rule),
+# a negative and an over-long length
+SUBSTRING_ARGS = ((1, 2), (0, 3), (2, 5), (-3, 2), (-20, 12), (2, -1),
+                  (3, 1000))
+
+
+def check_k17(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import strings as S
+    checks = 0
+    for w in STRING_WIDTHS:
+        col = utf8_rows(rng, 3000, 4096, w, device)
+        n = col.capacity
+        pos_t = torch.randint(-12, 13, (n,), dtype=torch.int32, device=device)
+        len_t = torch.randint(-2, 14, (n,), dtype=torch.int32, device=device)
+        cases = [(S.SUBSTRING, p, l) for p, l in SUBSTRING_ARGS]
+        cases += [(S.SUBSTRING, pos_t, 3), (S.SUBSTRING, 2, len_t),
+                  (S.SUBSTRING, pos_t, len_t)]
+        cases += [(m, 0, 0) for m in (S.TRIM, S.LTRIM, S.RTRIM)]
+        for mode, p, l in cases:
+            for valid in (col.validity, None):
+                _string_cols_err(
+                    S.string_slice(col.data, col.lengths, valid, mode, p, l),
+                    S._string_slice_torch(col.data, col.lengths, valid, mode,
+                                          p, l),
+                    f"K17 w={w} mode {mode}")
+                checks += 1
+    col = phone_batch(device)
+    cap = col.capacity
+    args = (col.data, col.lengths, col.validity, S.SUBSTRING, 1, 2)
+    _string_cols_err(S.string_slice(*args), S._string_slice_torch(*args),
+                     "K17 c_phone")
+    w = PHONE_WIDTH
+    return {
+        "name": "string_slice", "checks": checks + 1, "max_abs_err": 0.0,
+        "tolerance": "exact (bytes, lengths)", "rows": cap, "width": w,
+        "timed": "substring(c_phone, 1, 2) over one 2^20-row batch (q22)",
+        "ms": time_ms(lambda: S.string_slice(*args)),
+        "plain_ms": time_ms(lambda: S._string_slice_torch(*args), iters=5),
+        "library_ms": None,        # no single PyTorch call computes it
+        # rows, lengths and validity read; rows and lengths written
+        "bound_ms": bound_ms(cap * (w + 4 + 1) + cap * (w + 4)),
+    }
+
+
+def check_k18(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import strings as S
+    checks = 0
+
+    def scalar(s: str):
+        b = s.encode("utf-8")
+        w = max(8, 1 << (max(len(b), 1) - 1).bit_length())
+        row = torch.zeros((1, w), dtype=torch.uint8, device=device)
+        if b:
+            row[0, :len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+        return (row, torch.tensor([len(b)], dtype=torch.int32, device=device),
+                torch.ones(1, dtype=torch.bool, device=device))
+
+    null = scalar("")
+    null = (null[0], null[1], torch.zeros(1, dtype=torch.bool,
+                                          device=device))
+    for w in STRING_WIDTHS:
+        a = utf8_rows(rng, 3000, 4096, w, device)
+        b = utf8_rows(rng, 3000, 4096, min(2 * w, 256), device, 0.3)
+        n = a.capacity
+        ca = (a.data, a.lengths, a.validity)
+        cb = (b.data, b.lengths, b.validity)
+        for ops in ([ca, scalar("-"), cb], [scalar("ü:"), ca], [ca, null],
+                    [ca], [cb, ca, cb, scalar("𝄞")]):
+            out_w = 1 << (sum(o[0].shape[1] for o in ops) - 1).bit_length()
+            _string_cols_err(S.string_place(ops, n, out_w, S.CONCAT),
+                             S._string_place_torch(ops, n, out_w, S.CONCAT,
+                                                   0, torch.zeros(
+                                                       0, dtype=torch.uint8,
+                                                       device=device)),
+                             f"K18 concat w={w}")
+            checks += 1
+        for mode in (S.LPAD, S.RPAD):
+            for target in (-1, 0, 5, w, 2 * w + 3):
+                for pad in ("", " ", "ab", "é"):
+                    pt = torch.tensor(list(pad.encode("utf-8")),
+                                      dtype=torch.uint8, device=device)
+                    out_w = max(8, 1 << (max(target, w) - 1).bit_length())
+                    _string_cols_err(
+                        S.string_place([ca], n, out_w, mode, target, pt),
+                        S._string_place_torch([ca], n, out_w, mode, target,
+                                              pt),
+                        f"K18 pad mode {mode} w={w} target={target} "
+                        f"pad={pad!r}")
+                    checks += 1
+        if w <= 32:
+            # more operands than one kernel call takes: the wrapper folds
+            ops = [scalar("é-") if m % 4 == 3 else (cb if m % 2 else ca)
+                   for m in range(70)]
+            out_w = 1 << (sum(o[0].shape[1] for o in ops) - 1).bit_length()
+            _string_cols_err(S.string_place(ops, n, out_w, S.CONCAT),
+                             S._string_place_torch(ops, n, out_w, S.CONCAT,
+                                                   0, torch.zeros(
+                                                       0, dtype=torch.uint8,
+                                                       device=device)),
+                             f"K18 concat of 70 operands w={w}")
+            checks += 1
+    cap = 1 << 20
+    # two independent o_comment draws, so that no byte is read twice
+    col_a = _comments(rng, cap - 1234, cap, device, null_frac=0.05)
+    col_b = _comments(rng, cap - 1234, cap, device, null_frac=0.05)
+    ops = [(col_a.data, col_a.lengths, col_a.validity), scalar("-"),
+           (col_b.data, col_b.lengths, col_b.validity)]
+    out_w = 128                         # bucket(32 + 8 + 32)
+    empty = torch.zeros(0, dtype=torch.uint8, device=device)
+    _string_cols_err(S.string_place(ops, cap, out_w, S.CONCAT),
+                     S._string_place_torch(ops, cap, out_w, S.CONCAT, 0,
+                                           empty), "K18 o_comment concat")
+    star = torch.tensor(list(b"*-"), dtype=torch.uint8, device=device)
+    w = COMMENT_WIDTH
+    return {
+        "name": "string_place", "checks": checks + 1, "max_abs_err": 0.0,
+        "tolerance": "exact (bytes, lengths, validity)", "rows": cap,
+        "width": w,
+        "timed": "concat(a, '-', b) of two independent o_comment draws "
+                 "over one 2^20-row batch (out width 128)",
+        "ms": time_ms(lambda: S.string_place(ops, cap, out_w, S.CONCAT)),
+        "plain_ms": time_ms(lambda: S._string_place_torch(
+            ops, cap, out_w, S.CONCAT, 0, empty), iters=5),
+        "ms_lpad_40": time_ms(lambda: S.string_place(
+            ops[:1], cap, 64, S.LPAD, 40, star)),
+        "library_ms": None,        # no single PyTorch call computes it
+        # both operands' rows, lengths and validity read; the output rows,
+        # lengths and validity written
+        "bound_ms": bound_ms(2 * cap * (w + 4 + 1) + cap * (out_w + 4 + 1)),
+    }
+
+
+LOCATE_PATTERNS = ("l", "", "é", "😀", "a b", "ll", "\x80", "x" * 300)
+
+
+def check_locate(device, rng) -> dict:
+    import torch
+    from spark_rapids_tpu_torch.ops import strings as S
+    checks = 0
+    for w in STRING_WIDTHS:
+        col = utf8_rows(rng, 3000, 4096, w, device)
+        for p in LOCATE_PATTERNS:
+            pat = torch.tensor(list(p.encode("utf-8")), dtype=torch.uint8,
+                               device=device)
+            tensor_err(S.find_pattern(col.data, col.lengths, pat, S.LOCATE),
+                       S._find_pattern_torch(col.data, col.lengths, pat,
+                                             S.LOCATE),
+                       f"K13 locate w={w} {p!r}")
+            checks += 1
+    cap = 1 << 20
+    col = _comments(rng, cap - 1234, cap, device)
+    pat = torch.tensor(list(b"special"), dtype=torch.uint8, device=device)
+    tensor_err(S.find_pattern(col.data, col.lengths, pat, S.LOCATE),
+               S._find_pattern_torch(col.data, col.lengths, pat, S.LOCATE),
+               "K13 locate o_comment")
+    w = COMMENT_WIDTH
+    return {
+        "name": "find_pattern_locate", "checks": checks + 1,
+        "max_abs_err": 0.0, "tolerance": "exact (character positions)",
+        "rows": cap, "width": w,
+        "ms": time_ms(lambda: S.find_pattern(col.data, col.lengths, pat,
+                                             S.LOCATE)),
+        "plain_ms": time_ms(lambda: S._find_pattern_torch(
+            col.data, col.lengths, pat, S.LOCATE)),
+        "library_ms": None,        # no single PyTorch call computes it
+        # the byte rows and lengths read, an int32 per row written
+        "bound_ms": bound_ms(cap * (w + 4) + cap * 4),
+    }
+
+
+# -- Wide key lists (K2, K3, K11 in blocks) and many partitions (K12) ---------
+
+WIDE_KEY_TYPES = ("bigint", "string", "double", "int", "boolean", "date",
+                  "float", "smallint")
+
+
+def check_wide_keys(device, rng) -> dict:
+    """9 and 17 key columns: K2's blocked lanes against the twin's lanes
+    block by block and its order against the one-pass twin's; K3 and K11
+    (blocks OR-ed, hashes chained through per-row seeds) against their
+    one-pass twins, bit for bit."""
+    import torch
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.ops import kernels as K
+    cap = 1 << 16
+    n = cap - 321
+    out = {"phase": "wide_keys", "rows": n}
+    before = native.counts()
+    for n_keys in (9, 17):
+        cols = [make_column(rng, WIDE_KEY_TYPES[i % len(WIDE_KEY_TYPES)],
+                            cap, n, device, null_frac=0.05)
+                for i in range(n_keys)]
+        keys = [K.SortKey(c, i % 2 == 0, i % 3 != 0)
+                for i, c in enumerate(cols)]
+        lanes = K.sort_key_lanes(keys, n, cap)
+        tensor_err(lanes, torch.cat([K._sort_key_lanes_torch(b, n, cap)
+                                     for b in K.key_blocks(keys)]),
+                   f"K2 {n_keys} keys lanes")
+        order = K.lanes_order(lanes)
+        tensor_err(order, K.lanes_order(K._sort_key_lanes_torch(keys, n,
+                                                                cap)),
+                   f"K2 {n_keys} keys order")
+        srt = [K.gather_column(c, order) for c in cols]
+        _k3_outputs_err(K.segment_bounds(srt, n, cap),
+                        K._segment_bounds_torch(srt, n, cap),
+                        f"K3 {n_keys} keys")
+        for got, want, what in zip(H.murmur3(cols, cap, H.SEED, 200, n),
+                                   H._murmur3_torch(cols, cap, H.SEED, 200,
+                                                    n), ("hash", "pid")):
+            tensor_err(got, want, f"K11 {n_keys} keys {what}")
+        out[f"keys_{n_keys}"] = {
+            "blocks": len(K.key_blocks(cols)), "lanes": int(lanes.shape[0]),
+            "groups": int(K.segment_bounds(srt, n, cap)[2])}
+    out["launches"] = {k: v - before[k] for k, v in native.counts().items()
+                       if v != before[k]}
+    out["checked"] = "K2 lanes and order, K3 all outputs, K11 hash and " \
+                     "partition id: exact"
+    return out
+
+
+def check_many_partitions(device, rng) -> dict:
+    """K12 above the 4096 partitions its shared memory holds: 5000 and
+    65536 partitions at 2^20 rows, against its twin and itself."""
+    import torch
+    from spark_rapids_tpu_torch.shuffle import partitioning as P
+    cap = 1 << 20
+    out = {"phase": "many_partitions", "rows": cap}
+    for n in (5000, 65536):
+        pids = torch.randint(0, n, (cap,), dtype=torch.int32, device=device)
+        for rows in (cap, cap - 4321, 0):
+            got = P.partition_split(pids, rows, n)
+            again = P.partition_split(pids, rows, n)
+            want = P._partition_split_torch(pids, rows, n)
+            for g, a, w, what in zip(got, again, want, ("perm", "counts")):
+                tensor_err(g, w, f"K12 {what} n={n} rows={rows}")
+                tensor_err(g, a, f"K12 {what} n={n} (two calls)")
+        out[f"parts_{n}"] = {
+            "ms": time_ms(lambda: P.partition_split(pids, cap, n)),
+            "plain_ms": time_ms(lambda: P._partition_split_torch(
+                pids, cap, n), iters=5),
+            "bound_ms": bound_ms(cap * (4 + 8) + n * 4)}
+    out["checked"] = "permutation and counts exact, twice alike"
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
@@ -1705,18 +2068,19 @@ def oracle_q13(o, c, mask):
     return sorted(rows, key=lambda r: (-r[1], -r[0]))
 
 
-def oracle_q11(ps, s, n):
+def oracle_q11(ps, s, n, fraction: float = 0.0001):
     """(ps_partkey, value) over GERMANY's suppliers where value >
-    threshold, value descending; and the relative distance of the nearest
-    value to the threshold (a row that close may fall either side when the
-    sums are added in another order)."""
+    threshold (the total times ``fraction``), value descending; and the
+    relative distance of the nearest value to the threshold (a row that
+    close may fall either side when the sums are added in another
+    order)."""
     g = n["n_nationkey"][n["n_name"] == "GERMANY"]
     supp = s["s_suppkey"][np.isin(s["s_nationkey"], g)]
     m = np.isin(ps["ps_suppkey"], supp)
     value = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
     keys, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
     sums = np.bincount(inv, weights=value)
-    threshold = float(value.sum()) * 0.0001
+    threshold = float(value.sum()) * fraction
     keep = sums > threshold
     order = np.lexsort((keys[keep], -sums[keep]))
     margin = float(np.min(np.abs(sums - threshold)) / threshold)
@@ -1764,6 +2128,405 @@ def oracle_headline(n: int):
             for g in np.nonzero(cnt)[0]]
 
 
+def _by_key(keys: np.ndarray, n: int) -> np.ndarray:
+    """Row index of every key 1..n of a table keyed by arange(1, n + 1),
+    -1 where the key is out of the table."""
+    return np.where((keys >= 1) & (keys <= n), keys - 1, -1)
+
+
+# q22's country codes (TPC-H's, as benchmarks/queries.py has them)
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def oracle_q22(c, o):
+    """(cntrycode, numcust, totacctbal): customers of the seven phone
+    country codes whose balance is above the codes' average positive
+    balance and who have no order."""
+    code = c["c_phone"].astype("<U2")
+    keep = np.isin(code, Q22_CODES)
+    bal = c["c_acctbal"]
+    avg = float(np.mean(bal[keep & (bal > 0.0)]))
+    sel = keep & (bal > avg) & ~np.isin(c["c_custkey"], o["o_custkey"])
+    return [(str(k), int((code[sel] == k).sum()),
+             float(bal[sel & (code == k)].sum()))
+            for k in np.unique(code[sel])]
+
+
+def oracle_q2(ps, s, n, r, p):
+    """(s_acctbal, s_name, n_name, p_partkey, p_type) of EUROPE's cheapest
+    suppliers of the size-15 BRASS parts, top 100."""
+    rk = r["r_regionkey"][r["r_name"] == "EUROPE"]
+    eu_nation = np.isin(n["n_regionkey"], rk)
+    supp_nation = s["s_nationkey"]
+    eu_supp = eu_nation[supp_nation]
+    si = _by_key(ps["ps_suppkey"], len(s["s_suppkey"]))
+    rows = np.nonzero((si >= 0) & eu_supp[np.maximum(si, 0)])[0]
+    pk, cost, si = ps["ps_partkey"][rows], ps["ps_supplycost"][rows], \
+        si[rows]
+    min_cost = np.full(int(pk.max()) + 1, np.inf)
+    np.minimum.at(min_cost, pk, cost)
+    pi = _by_key(pk, len(p["p_partkey"]))
+    ok = pi >= 0
+    ok[ok] = (p["p_size"][pi[ok]] == 15) & \
+        np.char.endswith(p["p_type"][pi[ok]], "BRASS")
+    ok &= cost == min_cost[pk]
+    pk, si, pi = pk[ok], si[ok], pi[ok]
+    bal, sname = s["s_acctbal"][si], s["s_name"][si]
+    nname = n["n_name"][supp_nation[si]]
+    top = np.lexsort((pk, sname, nname, -bal))[:100]
+    return [(float(bal[i]), str(sname[i]), str(nname[i]), int(pk[i]),
+             str(p["p_type"][pi[i]])) for i in top]
+
+
+def oracle_q17(l, p):
+    """sum(l_extendedprice) / 7 over Brand#23 MED BOX parts' lines below
+    0.2 x their part's average quantity."""
+    part = np.zeros(int(l["l_partkey"].max()) + 1, np.bool_)
+    sel = (p["p_brand"] == "Brand#23") & (p["p_container"] == "MED BOX")
+    part[p["p_partkey"][sel]] = True
+    pk = l["l_partkey"]
+    cnt = np.bincount(pk)
+    qsum = np.bincount(pk, weights=l["l_quantity"].astype(np.float64))
+    limit = 0.2 * (qsum[pk] / cnt[pk])
+    m = part[pk] & (l["l_quantity"] < limit)
+    return [(float(l["l_extendedprice"][m].sum()) / 7.0,)]
+
+
+def oracle_q5(l, o, c, s, n, r):
+    """(n_name, revenue) of 1994 lines whose customer and supplier share
+    an ASIA nation, revenue descending."""
+    asia = np.isin(n["n_regionkey"],
+                   r["r_regionkey"][r["r_name"] == "ASIA"])
+    oi = l["l_orderkey"] - 1
+    od = o["o_orderdate"][oi]
+    ci = _by_key(o["o_custkey"][oi], len(c["c_custkey"]))
+    si = _by_key(l["l_suppkey"], len(s["s_suppkey"]))
+    m = (od >= 8766) & (od < 9131) & (ci >= 0) & (si >= 0)
+    cn = c["c_nationkey"][np.maximum(ci, 0)]
+    sn = s["s_nationkey"][np.maximum(si, 0)]
+    m &= (cn == sn) & asia[sn]
+    rev = np.bincount(sn[m], weights=l["l_extendedprice"][m] *
+                      (1.0 - l["l_discount"][m]), minlength=25)
+    hit = np.bincount(sn[m], minlength=25) > 0
+    rows = [(str(n["n_name"][k]), float(rev[k])) for k in np.nonzero(hit)[0]]
+    return sorted(rows, key=lambda x: -x[1])
+
+
+def oracle_q10(l, o, c, n):
+    """Top 20 customers by revenue of returned lines of 1994-Q1 orders."""
+    oi = l["l_orderkey"] - 1
+    od = o["o_orderdate"][oi]
+    ck = o["o_custkey"][oi]
+    m = ((od >= 8766) & (od < 8766 + 91) & (l["l_returnflag"] == "R") &
+         (ck <= len(c["c_custkey"])))
+    rev = np.bincount(ck[m], weights=l["l_extendedprice"][m] *
+                      (1.0 - l["l_discount"][m]))
+    keys = np.unique(ck[m])
+    top = keys[np.lexsort((keys, -rev[keys]))[:20]]
+    ci = top - 1
+    return [(int(k), str(c["c_name"][i]), float(c["c_acctbal"][i]),
+             str(n["n_name"][c["c_nationkey"][i]]), float(rev[k]))
+            for k, i in zip(top, ci)]
+
+
+def oracle_q14(l, p):
+    m = (l["l_shipdate"] >= 9374) & (l["l_shipdate"] < 9374 + 30)
+    pi = _by_key(l["l_partkey"][m], len(p["p_partkey"]))
+    price = (l["l_extendedprice"][m] * (1.0 - l["l_discount"][m]))[pi >= 0]
+    promo = np.char.startswith(p["p_type"][pi[pi >= 0]], "PROMO")
+    return [(100.0 * float(np.where(promo, price, 0.0).sum()) /
+             float(price.sum()),)]
+
+
+def oracle_q18(l, o, c):
+    """Top 100 orders by total price among those of more than 120 units,
+    with their customer."""
+    qty = np.bincount(l["l_orderkey"], weights=l["l_quantity"])
+    keys = np.nonzero(qty > 120)[0]
+    oi = keys - 1
+    ck = o["o_custkey"][oi]
+    ok = ck <= len(c["c_custkey"])
+    keys, oi, ck = keys[ok], oi[ok], ck[ok]
+    price, date = o["o_totalprice"][oi], o["o_orderdate"][oi]
+    top = np.lexsort((date, -price))[:100]
+    return [(str(c["c_name"][ck[i] - 1]), int(ck[i]), int(keys[i]),
+             int(date[i]), float(price[i]), int(qty[keys[i]])) for i in top]
+
+
+def oracle_q19(l, p):
+    m = np.isin(l["l_shipmode"], ["AIR", "REG AIR"])
+    pi = _by_key(l["l_partkey"], len(p["p_partkey"]))
+    m &= pi >= 0
+    q = l["l_quantity"][m]
+    pi = pi[m]
+    brand, cont, size = p["p_brand"][pi], p["p_container"][pi], \
+        p["p_size"][pi]
+    hit = np.zeros(len(q), np.bool_)
+    for b, conts, lo, hi, smax in (
+            ("Brand#12", ("SM CASE", "SM BOX"), 1, 11, 5),
+            ("Brand#23", ("MED BAG", "MED BOX"), 10, 20, 10),
+            ("Brand#34", ("LG CASE", "LG BOX"), 20, 30, 15)):
+        hit |= ((brand == b) & np.isin(cont, conts) & (q >= lo) &
+                (q <= hi) & (size <= smax))
+    price = l["l_extendedprice"][m] * (1.0 - l["l_discount"][m])
+    return [(float(price[hit].sum()),)]
+
+
+def oracle_q20(l, ps, p, s, n):
+    """CANADA's suppliers holding more of a TIN part than half its 1994
+    volume, by name."""
+    tin = np.zeros(len(p["p_partkey"]) + 2, np.bool_)
+    tin[p["p_partkey"][np.char.find(p["p_type"], "TIN") >= 0]] = True
+    m = (l["l_shipdate"] >= 8766) & (l["l_shipdate"] < 9131)
+    span = int(l["l_suppkey"].max()) + 1
+    lkey = l["l_partkey"][m] * span + l["l_suppkey"][m]
+    keys, inv = np.unique(lkey, return_inverse=True)
+    half = 0.5 * np.bincount(inv, weights=l["l_quantity"][m])
+    psk = ps["ps_partkey"] * span + ps["ps_suppkey"]
+    pos = np.minimum(np.searchsorted(keys, psk), len(keys) - 1)
+    found = keys[pos] == psk
+    qual = found & tin[ps["ps_partkey"]] & \
+        (ps["ps_availqty"] > np.where(found, half[pos], np.inf))
+    canada = n["n_nationkey"][n["n_name"] == "CANADA"]
+    supp = np.isin(s["s_nationkey"], canada) & \
+        np.isin(s["s_suppkey"], ps["ps_suppkey"][qual])
+    return [(str(x),) for x in np.sort(s["s_name"][supp])]
+
+
+def q11_scaled(t, fraction: float):
+    """q11 with its threshold fraction given: benchmarks/queries.py keeps
+    0.0001 whatever the scale, which at SF 10 leaves no part above it; the
+    TPC-H rule is 0.0001 / SF."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col, lit
+    n = t["nation"].filter(col("n_name") == lit("GERMANY"))
+    s = t["supplier"].join(n, on=(col("s_nationkey") == col("n_nationkey")))
+    ps = t["partsupp"].join(s, on=(col("ps_suppkey") == col("s_suppkey")))
+    value = col("ps_supplycost") * col("ps_availqty")
+    per_part = ps.groupBy("ps_partkey").agg(F.sum(value).alias("value"))
+    total = ps.agg((F.sum(value) * lit(fraction)).alias("threshold"))
+    return (per_part.crossJoin(total)
+            .filter(col("value") > col("threshold"))
+            .select(col("ps_partkey"), col("value"))
+            .orderBy(col("value").desc(), col("ps_partkey").asc()))
+
+
+def q11_with_rows(session, tables, data, sf: float) -> dict:
+    """q11 at the TPC-H fraction 0.0001 / SF, against the numpy oracle at
+    that fraction; it must return rows."""
+    fraction = 0.0001 / sf
+    want, margin = oracle_q11(data["partsupp"], data["supplier"],
+                              data["nation"], fraction)
+    ORACLE_NOTES["q11_scaled"] = f" (nearest value {margin:.3e} relative " \
+                                 f"from the threshold)"
+    t0 = time.perf_counter()
+    rows = q11_scaled(tables, fraction).collect()
+    seconds = time.perf_counter() - t0
+    check_rows("q11_scaled", rows, want)
+    if not rows:
+        raise AssertionError("q11 at 0.0001 / SF returned no row")
+    return {"phase": "q11_scaled", "fraction": fraction, "rows": len(rows),
+            "seconds": seconds, "nearest_relative_margin": margin,
+            "oracle": "numpy, relative 1e-9"}
+
+
+# -- The string expressions through the session -------------------------------
+
+def spark_substring(s: str, pos: int, length: int) -> str:
+    """UTF8String.substringSQL over characters."""
+    k = len(s)
+    start = pos - 1 if pos > 0 else (k + pos if pos < 0 else 0)
+    end = start + length
+    start = max(start, 0)
+    return "" if start >= end else s[start:end]
+
+
+def spark_pad(s: str, width: int, pad: str, left: bool) -> str:
+    """UTF8String.lpad/rpad over bytes (the port's declared stance)."""
+    b, p = s.encode("utf-8"), pad.encode("utf-8")
+    if width - len(b) <= 0 or not p:
+        return b[:max(width, 0)].decode("utf-8", errors="replace")
+    fill = (p * width)[:width - len(b)]
+    return (fill + b if left else b + fill).decode("utf-8")
+
+
+def initcap_ascii(s: str) -> str:
+    return "".join(ch.upper() if i == 0 or s[i - 1] == " " else ch.lower()
+                   for i, ch in enumerate(s))
+
+
+def _per_value(values: np.ndarray, fn) -> np.ndarray:
+    """``fn`` over each distinct value, mapped back to the rows."""
+    uniq, inv = np.unique(values, return_inverse=True)
+    out = np.array([fn(v) for v in uniq.tolist()])
+    return out[inv]
+
+
+def _string_exprs_spec(F, col, lit):
+    """(table, [(name, Col, oracle over the table's numpy columns)])."""
+    cust = [
+        ("length_name", F.length(col("c_name")),
+         lambda d: _per_value(d["c_name"], len)),
+        ("upper_segment", F.upper(col("c_mktsegment")),
+         lambda d: np.char.upper(d["c_mktsegment"])),
+        ("lower_name", F.lower(col("c_name")),
+         lambda d: np.char.lower(d["c_name"])),
+        ("initcap_segment", F.initcap(F.lower(col("c_mktsegment"))),
+         lambda d: _per_value(d["c_mktsegment"],
+                              lambda s: initcap_ascii(s.lower()))),
+        ("phone_code", F.substring(col("c_phone"), 1, 2),
+         lambda d: d["c_phone"].astype("<U2")),
+        ("phone_from_0", F.substring(col("c_phone"), 0, 3),
+         lambda d: d["c_phone"].astype("<U3")),
+        ("phone_tail", F.substring(col("c_phone"), -4, 4),
+         lambda d: _per_value(d["c_phone"],
+                              lambda s: spark_substring(s, -4, 4))),
+        ("name_before_start", F.substring(col("c_name"), -20, 12),
+         lambda d: _per_value(d["c_name"],
+                              lambda s: spark_substring(s, -20, 12))),
+        ("name_phone", F.concat(col("c_name"), lit("-"), col("c_phone")),
+         lambda d: np.char.add(np.char.add(d["c_name"], "-"),
+                               d["c_phone"])),
+        ("trim", F.trim(F.lpad(col("c_mktsegment"), 12, " ")),
+         lambda d: d["c_mktsegment"]),
+        ("ltrim", F.ltrim(F.lpad(col("c_mktsegment"), 12, " ")),
+         lambda d: d["c_mktsegment"]),
+        ("rtrim", F.rtrim(F.rpad(col("c_mktsegment"), 14, " ")),
+         lambda d: d["c_mktsegment"]),
+        ("lpad_segment", F.lpad(col("c_mktsegment"), 12, "*-"),
+         lambda d: _per_value(d["c_mktsegment"],
+                              lambda s: spark_pad(s, 12, "*-", True))),
+        ("rpad_cut_name", F.rpad(col("c_name"), 10, "."),
+         lambda d: _per_value(d["c_name"],
+                              lambda s: spark_pad(s, 10, ".", False))),
+        ("locate_zero", F.locate("0", col("c_name")),
+         lambda d: np.char.find(d["c_name"], "0") + 1),
+        ("instr_dash", F.instr(col("c_phone"), "-"),
+         lambda d: np.char.find(d["c_phone"], "-") + 1),
+        ("like_eq", col("c_mktsegment").like("BUILDING"),
+         lambda d: d["c_mktsegment"] == "BUILDING"),
+        ("like_contains", col("c_name").like("%#0000001%"),
+         lambda d: np.char.find(d["c_name"], "#0000001") >= 0),
+        ("like_prefix", col("c_phone").like("13-%"),
+         lambda d: np.char.startswith(d["c_phone"], "13-")),
+        ("like_suffix", col("c_name").like("%7"),
+         lambda d: np.char.endswith(d["c_name"], "7")),
+        ("like_general", col("c_phone").like("1_-%"),
+         lambda d: (d["c_phone"].astype("<U1") == "1") &
+         (np.char.find(d["c_phone"], "-") == 2)),
+        ("replace_segment", F.replace(col("c_mktsegment"), "I", "ii"),
+         lambda d: np.char.replace(d["c_mktsegment"], "I", "ii")),
+    ]
+    part = [
+        ("length_type", F.length(col("p_type")),
+         lambda d: np.char.str_len(d["p_type"])),
+        ("upper_lower_type", F.upper(F.lower(col("p_type"))),
+         lambda d: d["p_type"]),
+        ("initcap_type", F.initcap(F.lower(col("p_type"))),
+         lambda d: _per_value(d["p_type"],
+                              lambda s: initcap_ascii(s.lower()))),
+        ("type_tail", F.substring(col("p_type"), -5, 5),
+         lambda d: _per_value(d["p_type"],
+                              lambda s: spark_substring(s, -5, 5))),
+        ("locate_brass", F.locate("BRASS", col("p_type")),
+         lambda d: np.char.find(d["p_type"], "BRASS") + 1),
+        ("brand_container", F.concat(col("p_brand"), lit(" "),
+                                     col("p_container")),
+         lambda d: np.char.add(np.char.add(d["p_brand"], " "),
+                               d["p_container"])),
+        ("rpad_container", F.rpad(col("p_container"), 12, "_"),
+         lambda d: _per_value(d["p_container"],
+                              lambda s: spark_pad(s, 12, "_", False))),
+        ("lpad_cut_brand", F.lpad(col("p_brand"), 6, "#"),
+         lambda d: _per_value(d["p_brand"],
+                              lambda s: spark_pad(s, 6, "#", True))),
+        ("like_brass", col("p_type").like("%BRASS"),
+         lambda d: np.char.endswith(d["p_type"], "BRASS")),
+        ("like_promo", col("p_type").like("PROMO%"),
+         lambda d: np.char.startswith(d["p_type"], "PROMO")),
+        ("like_general_box", col("p_container").like("%_BOX"),
+         lambda d: np.char.endswith(d["p_container"], "BOX") &
+         (np.char.str_len(d["p_container"]) >= 4)),
+        ("replace_brand", F.replace(col("p_brand"), "#", "##"),
+         lambda d: np.char.replace(d["p_brand"], "#", "##")),
+    ]
+    return (("customer", "c_custkey", cust), ("part", "p_partkey", part))
+
+
+def _column_err(col, n: int, want: np.ndarray, what: str) -> None:
+    """A result column against its oracle: strings byte for byte within
+    their lengths, ints and bools exactly; no row NULL."""
+    valid = col.validity[:n].cpu().numpy()
+    if not valid.all():
+        raise AssertionError(f"string_exprs {what}: NULL rows")
+    if col.data.dim() == 2:
+        b = np.char.encode(np.asarray(want), "utf-8")
+        wl = np.char.str_len(b)
+        lens = col.lengths[:n].cpu().numpy()
+        if not np.array_equal(lens, wl):
+            bad = np.nonzero(lens != wl)[0][:3].tolist()
+            raise AssertionError(f"string_exprs {what}: lengths differ at "
+                                 f"{bad}")
+        wb = max(b.dtype.itemsize, 1)
+        mat = np.frombuffer(b.tobytes(), np.uint8).reshape(n, wb) \
+            if b.dtype.itemsize else np.zeros((n, 1), np.uint8)
+        k = min(wb, col.data.shape[1])
+        got = col.data[:n, :k].cpu().numpy()
+        inside = np.arange(k)[None, :] < lens[:, None]
+        if not np.array_equal(np.where(inside, got, 0),
+                              np.where(inside, mat[:, :k], 0)):
+            raise AssertionError(f"string_exprs {what}: bytes differ")
+    else:
+        got = col.data[:n].cpu().numpy()
+        if not np.array_equal(got, np.asarray(want).astype(got.dtype)):
+            bad = np.nonzero(got != np.asarray(want))[0][:3].tolist()
+            raise AssertionError(f"string_exprs {what}: differs at {bad}")
+
+
+# the expressions the reference runs on the host, one pass per scan batch
+HOST_EXPRS = {"customer": {"like": 1, "replace": 1},
+              "part": {"like": 1, "replace": 1}}
+
+
+def string_exprs(tables, data) -> dict:
+    """Length, case maps, substrings, concat, trims, pads, locate, LIKE
+    and replace through the session over customer and part, each column
+    held to a Python oracle (Spark's rules, bytes for the pads); the host
+    string passes must be exactly the general LIKE's and replace's, one
+    per scan batch."""
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col, lit
+    out = {"phase": "string_exprs", "tables": {}}
+    for table, key, spec in _string_exprs_spec(F, col, lit):
+        d = data[table]
+        n = len(d[key])
+        host = native.host_counts()
+        t0 = time.perf_counter()
+        batch = tables[table].select(
+            col(key), *[c.alias(name) for name, c, _f in spec]).collect_batch()
+        seconds = time.perf_counter() - t0
+        passes = {k: v - host[k] for k, v in native.host_counts().items()}
+        if batch.num_rows != n:
+            raise AssertionError(f"string_exprs {table}: {batch.num_rows} "
+                                 f"rows, table {n}")
+        _column_err(batch.columns[0], n, d[key], f"{table} {key}")
+        t1 = time.perf_counter()
+        for (name, _c, oracle), c in zip(spec, batch.columns[1:]):
+            _column_err(c, n, oracle(d), f"{table} {name}")
+        batches = -(-n // (1 << 20))
+        want = {k: v * batches for k, v in HOST_EXPRS[table].items()}
+        if {k: v for k, v in passes.items() if v} != want:
+            raise AssertionError(f"string_exprs {table}: host passes "
+                                 f"{passes}, expected {want}")
+        out["tables"][table] = {
+            "rows": n, "columns": [name for name, _c, _f in spec],
+            "seconds": seconds, "oracle_s": time.perf_counter() - t1,
+            "host_string_passes": passes}
+    out["oracle"] = "Python: Spark's rules (bytes for the pads), exact"
+    return out
+
+
 PATH_KERNELS = {
     "headline": ("dense_stats", "slot_aggregate", "compact_scan"),
     "q6": ("masked_reduce",),
@@ -1782,6 +2545,18 @@ PATH_KERNELS = {
             "compact_scan"),
     "q15": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
             "cross_expand"),
+    "q22": ("string_slice", "compact_scan", "cross_expand", "murmur3",
+            "partition_split", "join_probe"),
+    "q2": ("find_pattern", "sort_key_lanes", "join_probe", "join_expand"),
+    "q17": ("compact_scan", "join_probe", "join_expand"),
+    "q5": ("compact_scan", "join_probe", "join_expand"),
+    "q10": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand"),
+    "q14": ("find_pattern", "compact_scan", "join_probe", "join_expand"),
+    "q18": ("sort_key_lanes", "join_probe", "join_expand"),
+    "q19": ("compact_scan", "join_probe", "join_expand"),
+    "q20": ("find_pattern", "compact_scan", "join_probe"),
+    "string_exprs": ("string_map", "string_slice", "string_place",
+                     "find_pattern_locate", "find_pattern"),
 }
 # the operators q3, q4, q12 and q13 must run on at SF 10: the reference's
 # shuffled plan (their build sides are far above the 10 MiB threshold);
@@ -1791,7 +2566,10 @@ SHUFFLED_OPERATORS = ("TpuShuffledJoinExec", "TpuHashExchangeExec",
 REQUIRED_OPERATORS = {"q3": SHUFFLED_OPERATORS, "q12": SHUFFLED_OPERATORS,
                       "q4": SHUFFLED_OPERATORS, "q13": SHUFFLED_OPERATORS,
                       "q11": ("TpuCrossJoinExec",),
-                      "q15": ("TpuCrossJoinExec",)}
+                      "q15": ("TpuCrossJoinExec",),
+                      # the left anti join against 15 M orders, shuffled
+                      "q22": ("TpuCrossJoinExec", "TpuShuffledJoinExec",
+                              "TpuHashExchangeExec")}
 # launched by their own phase, not by the main path
 PHASE_KERNELS = {"singleword_rank": "check_k10: groupby_singleword at 2^20 "
                  "rows (no engine path calls the single-word route)",
@@ -1898,13 +2676,16 @@ def main_path(sf: float, device) -> tuple:
             "supplier": datagen.gen_supplier(sf),
             "partsupp": datagen.gen_partsupp(sf),
             "nation": datagen.gen_nation(),
+            "part": datagen.gen_part(sf),
+            "region": datagen.gen_region(),
             "headline": queries.headline_table(HEADLINE_ROWS)}
     gen_s = time.perf_counter() - t0
     l, o, c = data["lineitem"], data["orders"], data["customer"]
     s, ps = data["supplier"], data["partsupp"]
+    n, r, p = data["nation"], data["region"], data["part"]
     t0 = time.perf_counter()
     kept = q13_order_mask(o["o_comment"])
-    q11_rows, q11_margin = oracle_q11(ps, s, data["nation"])
+    q11_rows, q11_margin = oracle_q11(ps, s, n)
     ORACLE_NOTES["q11"] = (f" (the nearest per-part value lies "
                            f"{q11_margin:.3e} of the threshold from it, "
                            f"relative)")
@@ -1912,15 +2693,25 @@ def main_path(sf: float, device) -> tuple:
                "q3": oracle_q3(l, o, c), "q12": oracle_q12(l, o),
                "q4": oracle_q4(l, o), "q13": oracle_q13(o, c, kept),
                "q11": q11_rows, "q15": oracle_q15(l, s),
+               "q22": oracle_q22(c, o), "q2": oracle_q2(ps, s, n, r, p),
+               "q17": oracle_q17(l, p), "q5": oracle_q5(l, o, c, s, n, r),
+               "q10": oracle_q10(l, o, c, n), "q14": oracle_q14(l, p),
+               "q18": oracle_q18(l, o, c), "q19": oracle_q19(l, p),
+               "q20": oracle_q20(l, ps, p, s, n),
                "full_outer": oracle_full_outer(o, c, kept),
                "headline": oracle_headline(HEADLINE_ROWS)}
     oracle_s = time.perf_counter() - t0
+    if not oracles["q22"]:
+        raise AssertionError("q22's oracle is empty")
     rows_of = {"headline": HEADLINE_ROWS}
     for name in MAIN_QUERIES:
         main = queries.TABLES[name][-1]
         rows_of.setdefault(name, len(next(iter(data[main].values()))))
     session = TpuSession.builder.config(
-        {"spark.rapids.torch.device": str(device)}).getOrCreate()
+        {"spark.rapids.torch.device": str(device),
+         # the ASCII-only case maps of the string phase
+         "spark.rapids.tpu.sql.incompatibleOps.enabled": "true"}
+    ).getOrCreate()
     tables = {name: session.createDataFrame(
         cols, schema=queries.table_schema(cols))
         for name, cols in data.items()}
@@ -1932,15 +2723,27 @@ def main_path(sf: float, device) -> tuple:
             start = len(calls)
             lines.append(run_query(name, tables, session.scan_cache,
                                    oracles[name], rows_of[name], device))
-            n = lines[-1]["launches_cold_run"].get("cross_expand", 0)
-            if n:
-                k15_shapes[name] = calls[start:start + n]
+            k = lines[-1]["launches_cold_run"].get("cross_expand", 0)
+            if k:
+                k15_shapes[name] = calls[start:start + k]
+        before = native.counts()
+        lines.append(string_exprs(tables, data))
+        lines[-1]["launches"] = {k: v - before[k]
+                                 for k, v in native.counts().items()
+                                 if v != before[k]}
+        missing = [k for k in PATH_KERNELS["string_exprs"]
+                   if lines[-1]["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"string_exprs did not launch {missing}")
         launches = native.counts()
-    peak = max(line["peak_device_bytes"] for line in lines)
+        host_passes = native.host_counts()
+    peak = max(line.get("peak_device_bytes", 0) for line in lines)
     ab = window_depth_ab(session, tables, oracles, device)
     jf = join_form_ab(session, tables, oracles, device)
+    q11 = q11_with_rows(session, tables, data, sf)
     of = outer_forms(session, tables, oracles, device)
-    return lines, launches, peak, gen_s, oracle_s, (ab, jf, of), k15_shapes
+    return (lines, launches, host_passes, peak, gen_s, oracle_s,
+            (ab, jf, q11, of), k15_shapes)
 
 
 @contextlib.contextmanager
@@ -1963,7 +2766,8 @@ def recording(module, name: str):
 
 # the counted run, in this order
 MAIN_QUERIES = ("q6", "q1", "q3", "q12", "q4", "q13", "q11", "q15",
-                "headline")
+                "q22", "q2", "q17", "q5", "q10", "q14", "q18", "q19",
+                "q20", "headline")
 
 
 def q13_filtered_orders(t):
@@ -2180,6 +2984,10 @@ REPLACES = {
     "find_pattern": "spark_rapids_tpu/ops/strings.py:74",
     "build_matched": "spark_rapids_tpu/ops/joins.py:147",
     "cross_expand": "spark_rapids_tpu/ops/joins.py:241",
+    "string_map": "spark_rapids_tpu/ops/strings.py:110",
+    "string_slice": "spark_rapids_tpu/ops/strings.py:182",
+    "string_place": "spark_rapids_tpu/ops/strings.py:229",
+    "find_pattern_locate": "spark_rapids_tpu/ops/strings.py:465",
 }
 
 
@@ -2231,19 +3039,25 @@ def main() -> int:
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k7, check_k7_outer, check_k8, check_k9,
                   check_k10, check_k11, check_k12, check_k13, check_k14,
-                  check_k15):
+                  check_k15, check_k16, check_k17, check_k18, check_locate):
         r = check(device, rng)
         torch.cuda.synchronize()
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
 
-    lines, launches, peak, gen_s, oracle_s, phases, k15_shapes = \
-        main_path(args.sf, device)
+    for check in (check_wide_keys, check_many_partitions):
+        emit(check(device, rng))
+        torch.cuda.synchronize()
+
+    lines, launches, host_passes, peak, gen_s, oracle_s, phases, \
+        k15_shapes = main_path(args.sf, device)
     for line in lines:
         emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
-          "launches": launches})
+          "launches": launches,
+          # the general LIKE's and replace's passes (host in the reference)
+          "host_string_passes": host_passes})
     for phase in phases:
         emit(phase)
     r = check_k15_main(device, k15_shapes)

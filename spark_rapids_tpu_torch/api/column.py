@@ -1,7 +1,8 @@
 """Column wrapper: the operator-overloaded expression builder (pyspark
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
-operators, ``isin``, the string predicates ``contains``, ``startswith``
-and ``endswith``, and the ``when(...).otherwise(...)`` chain."""
+operators, ``isin``, the string predicates ``contains``, ``startswith``,
+``endswith`` and ``like``, ``substr``, and the ``when(...).otherwise(...)``
+chain."""
 
 from __future__ import annotations
 
@@ -67,6 +68,12 @@ class Col:
 
     def endswith(self, other):
         return Col(st.EndsWith(self.expr, _unwrap(other)))
+
+    def like(self, pattern: str):
+        return Col(st.Like(self.expr, pattern))
+
+    def substr(self, start, length):
+        return Col(st.Substring(self.expr, _unwrap(start), _unwrap(length)))
 
     def alias(self, name: str) -> "Col":
         return Col(ex.Alias(self.expr, name))

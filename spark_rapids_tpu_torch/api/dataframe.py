@@ -1,7 +1,7 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn, join, crossJoin, groupBy().agg, agg, orderBy, limit,
-repartition, coalesce, collect and collect_batch."""
+select, withColumn, withColumnRenamed, join, crossJoin, groupBy().agg, agg,
+orderBy, limit, repartition, coalesce, collect and collect_batch."""
 
 from __future__ import annotations
 
@@ -63,6 +63,11 @@ class DataFrame:
                 exprs.append(ex.ColumnRef(c))
         if not replaced:
             exprs.append(ex.Alias(_unwrap(col), name))
+        return self._df(lp.Project(self._plan, exprs))
+
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [ex.Alias(ex.ColumnRef(c), new) if c == old
+                 else ex.ColumnRef(c) for c in self.columns]
         return self._df(lp.Project(self._plan, exprs))
 
     _JOIN_ALIASES = {"outer": "full", "full_outer": "full",

@@ -236,6 +236,23 @@ class Column:
                                for a in arrays])
 
     @staticmethod
+    def from_pylist(values: Sequence[Any], dtype: dt.DType,
+                    capacity: Optional[int] = None, device="cpu",
+                    width: Optional[int] = None) -> "Column":
+        """Host values (None = NULL) -> a column on ``device``: the upload
+        of a host pass's result (the reference's Column.from_pylist for
+        strings and fixed-width types)."""
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        if dtype == dt.STRING:
+            vals = np.empty(len(values), dtype=object)
+            vals[:] = list(values)
+            return Column.from_numpy(vals, dt.STRING, valid, capacity,
+                                     device, width)
+        vals = np.array([v if v is not None else 0 for v in values],
+                        dtype=dtype.numpy_dtype)
+        return Column.from_numpy(vals, dtype, valid, capacity, device)
+
+    @staticmethod
     def full_null(dtype: dt.DType, capacity: int, device,
                   width: int = MIN_STRING_WIDTH) -> "Column":
         valid = torch.zeros(capacity, dtype=torch.bool, device=device)

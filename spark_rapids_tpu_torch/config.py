@@ -68,6 +68,29 @@ SHUFFLE_PIPELINE_DEPTH = ConfEntry(
     "every batch's counts as it comes.",
     8, int)
 
+
+def parse_bool(value: Any) -> bool:
+    """'true'/'false' and their kin (the reference's boolean conf)."""
+    if isinstance(value, bool):
+        return value
+    s = str(value).strip().lower()
+    if s in ("true", "1", "yes", "on"):
+        return True
+    if s in ("false", "0", "no", "off"):
+        return False
+    raise ValueError(f"cannot parse boolean value: {value!r}")
+
+
+INCOMPATIBLE_OPS = ConfEntry(
+    "spark.rapids.tpu.sql.incompatibleOps.enabled",
+    "Enable ops whose results differ from Spark's in corner cases: the "
+    "ASCII-only case mappings Upper, Lower and InitCap (ref: "
+    "spark.rapids.sql.incompatibleOps.enabled). Off, a plan that uses one "
+    "raises NotImplementedError: the reference runs them on its host "
+    "engine, which the port does not have yet.",
+    False, parse_bool)
+
+
 _BYTE_SUFFIXES = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20,
                   "mb": 1 << 20, "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40,
                   "tb": 1 << 40}

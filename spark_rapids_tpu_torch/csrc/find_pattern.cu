@@ -11,7 +11,13 @@
 //   mode 1 (prefix): 0 when p <= len and data[i, 0 .. p) == pattern;
 //   mode 2 (suffix): len - p when p <= len and
 //                    data[i, len-p .. len) == pattern;
-// and -1 where there is none. As in the reference: an empty pattern
+// and -1 where there is none. Mode 3 (locate) replaces the
+// character-position step of StringLocate (strings.py:465-472): with j the
+// first-occurrence position of mode 0, it writes the number of UTF-8
+// character-start bytes ((b & 0xC0) != 0x80) in data[i, 0 .. j], the
+// 1-based character index of the match, and 0 where there is no match (a
+// match at a leading continuation byte also gives 0, as the reference's
+// cumsum - 1 + 1 does). As in the reference: an empty pattern
 // matches at 0 in every row, a pattern longer than w matches nowhere, a
 // match must end within the row's length (bytes past it never match,
 // whatever they hold), and the comparison is bytewise, so a multi-byte
@@ -42,13 +48,13 @@ __global__ void find_kernel(const uint8_t* data, const int* lengths,
   }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const uint8_t* row = data + i * (long long)w;
   if (p == 0) {
-    out[i] = 0;
+    out[i] = mode == 3 ? ((row[0] & 0xC0) != 0x80 ? 1 : 0) : 0;
     return;
   }
   int len = lengths[i];
   if (len > w) len = w;
-  const uint8_t* row = data + i * (long long)w;
   int pos = -1;
   if (p <= len) {
     int j = 0;
@@ -66,6 +72,11 @@ __global__ void find_kernel(const uint8_t* data, const int* lengths,
       }
     }
   }
+  if (mode == 3) {
+    int chars = 0;
+    for (int j = 0; j <= pos; ++j) chars += (row[j] & 0xC0) != 0x80;
+    pos = chars;  // 0 when not found (pos == -1)
+  }
   out[i] = pos;
 }
 
@@ -79,7 +90,7 @@ extern "C" {
 int find_pattern(const void* data, const void* lengths, long long n, int w,
                  const void* pattern, int p, int mode, void* out,
                  void* stream) {
-  if (n < 1 || w < 1 || p < 0 || mode < 0 || mode > 2)
+  if (n < 1 || w < 1 || p < 0 || mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (n + kThreads - 1) / kThreads;
   find_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(

@@ -29,6 +29,9 @@ struct KeyDesc {
   int pad;
 };
 
+// Descriptors one call takes. The Python wrappers of K2, K3 and K11 split a
+// longer key list into blocks of at most MAX_KEYS (ops/kernels.py MAX_KEYS)
+// and combine the blocks' results.
 #define MAX_KEYS 8
 
 struct KeyTable {

@@ -21,6 +21,11 @@
 // launch 2 (one block) scans the block counts; launch 3 scans each block's
 // starts with warp shuffles, adds the block offset and scatters the
 // permutation. The scan is written here, not taken from a library.
+//
+// More than MAX_KEYS key columns come in blocks of descriptors, one call
+// each: every call but the first `accumulate`s (a row already flagged stays
+// a start, so a row starts a segment when any block differs from the row
+// before), and only the last one `finish`es with launches 2 and 3.
 #include "keys_common.cuh"
 
 namespace {
@@ -57,12 +62,13 @@ __device__ __forceinline__ bool key_changed(const KeyDesc& d, long long i) {
   }
 }
 
-__global__ void flags_kernel(KeyTable kt, const int* n_live, long long cap,
-                             uint8_t* starts, int* block_counts) {
+__global__ void flags_kernel(KeyTable kt, int accumulate, const int* n_live,
+                             long long cap, uint8_t* starts,
+                             int* block_counts) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   bool start = false;
   if (i < cap && i < (long long)*n_live) {
-    start = (i == 0);
+    start = accumulate ? starts[i] != 0 : (i == 0);
     for (int k = 0; k < kt.n && !start; ++k) start = key_changed(kt.k[k], i);
   }
   if (i < cap) starts[i] = start ? 1 : 0;
@@ -140,20 +146,23 @@ long long segment_bounds_scratch_bytes(long long cap) {
   return (long long)num_blocks(cap) * (long long)sizeof(int);
 }
 
-// Returns 0 or the CUDA error of the launch.
-int segment_bounds(const KeyDesc* keys, int nkeys, const void* n_live,
-                   long long cap, void* starts, void* seg_ids, void* first_row,
-                   void* n_groups, void* scratch, void* stream) {
+// accumulate: OR this block of keys' starts into `starts` (a later block of
+// the same key list); finish: write seg_ids, first_row and n_groups (the
+// last block). Returns 0 or the CUDA error of the launch.
+int segment_bounds(const KeyDesc* keys, int nkeys, int accumulate, int finish,
+                   const void* n_live, long long cap, void* starts,
+                   void* seg_ids, void* first_row, void* n_groups,
+                   void* scratch, void* stream) {
   if (nkeys < 1 || nkeys > MAX_KEYS) return (int)cudaErrorInvalidValue;
   KeyTable kt;
   kt.n = nkeys;
   for (int i = 0; i < nkeys; ++i) kt.k[i] = keys[i];
   cudaStream_t s = (cudaStream_t)stream;
   const int nb = num_blocks(cap);
-  flags_kernel<<<nb, kThreads, 0, s>>>(kt, (const int*)n_live, cap,
-                                       (uint8_t*)starts, (int*)scratch);
+  flags_kernel<<<nb, kThreads, 0, s>>>(kt, accumulate, (const int*)n_live,
+                                       cap, (uint8_t*)starts, (int*)scratch);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !finish) return (int)e;
   scan_kernel<<<1, kScanThreads, 0, s>>>((int*)scratch, nb, (int*)n_groups);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

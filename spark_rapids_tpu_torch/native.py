@@ -6,10 +6,13 @@ with ``ctypes``. The build runs at first use from the sources in the
 checkout, one ``nvcc`` per source, all started together, and is skipped
 for a library newer than its sources. Nothing here runs at import time.
 
-The only process state is the loaded library handles and ``LAUNCHES``: one
-plain integer per kernel (K7's outer mode has its own), bumped by its
-wrapper where it launches, so a run can show which kernels the main path
-went through.
+The only process state is the loaded library handles, ``LAUNCHES``: one
+plain integer per kernel (K7's outer mode and K13's locate mode have their
+own), bumped by its wrapper where it launches, so a run can show which
+kernels the main path went through; and ``HOST_STRING_PASSES``: one
+integer per string expression that the reference itself runs on the host
+(the general LIKE, replace, locate from a position past 1), bumped once
+for each device -> host copy of a column it makes.
 """
 
 from __future__ import annotations
@@ -31,13 +34,18 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "segment_reduce", "compact_scan", "join_probe", "join_expand",
            "join_expand_outer", "dense_stats", "slot_aggregate",
            "singleword_rank", "murmur3", "partition_split", "find_pattern",
-           "build_matched", "cross_expand")
-LIBRARY_OF = {"join_expand_outer": "join_expand"}
+           "build_matched", "cross_expand", "string_map", "string_slice",
+           "string_place", "find_pattern_locate")
+LIBRARY_OF = {"join_expand_outer": "join_expand",
+              "find_pattern_locate": "find_pattern"}
 # the libraries, one csrc/<name>.cu each
 SOURCES = tuple(k for k in KERNELS if k not in LIBRARY_OF)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+# the string expressions the reference runs on the host, not TPU kernels
+HOST_STRING_EXPRS = ("like", "replace", "locate")
+HOST_STRING_PASSES: Dict[str, int] = {k: 0 for k in HOST_STRING_EXPRS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -54,6 +62,12 @@ class KeyDesc(ctypes.Structure):
                 ("ascending", _I), ("nulls_first", _I), ("pad", _I)]
 
 
+class Operand(ctypes.Structure):
+    """Mirror of ``Operand`` in csrc/string_place.cu."""
+    _fields_ = [("data", _P), ("lengths", _P), ("valid", _P),
+                ("width", _I), ("stride", _I)]
+
+
 _SIGNATURES = {
     "masked_reduce": {
         "masked_reduce": (_I, [_I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _I,
@@ -65,8 +79,8 @@ _SIGNATURES = {
                                 _P, _P]),
     },
     "segment_bounds": {
-        "segment_bounds": (_I, [ctypes.POINTER(KeyDesc), _I, _P, _L, _P, _P,
-                                _P, _P, _P, _P]),
+        "segment_bounds": (_I, [ctypes.POINTER(KeyDesc), _I, _I, _I, _P, _L,
+                                _P, _P, _P, _P, _P, _P]),
         "segment_bounds_scratch_bytes": (_L, [_L]),
     },
     "segment_reduce": {
@@ -111,7 +125,6 @@ _SIGNATURES = {
     "partition_split": {
         "partition_split": (_I, [_P, _P, _L, _I, _P, _P, _P, _P]),
         "partition_split_scratch_bytes": (_L, [_L, _I]),
-        "partition_split_max_parts": (_I, []),
     },
     "find_pattern": {
         "find_pattern": (_I, [_P, _P, _L, _I, _P, _I, _I, _P, _P]),
@@ -122,6 +135,17 @@ _SIGNATURES = {
     },
     "cross_expand": {
         "cross_expand": (_I, [_P, _P, _L, _P, _P, _P, _P]),
+    },
+    "string_map": {
+        "string_map": (_I, [_P, _P, _P, _L, _I, _I, _P, _P, _P]),
+    },
+    "string_slice": {
+        "string_slice": (_I, [_P, _P, _P, _L, _I, _I, _P, _I, _P, _I, _P,
+                              _P, _P]),
+    },
+    "string_place": {
+        "string_place": (_I, [ctypes.POINTER(Operand), _I, _L, _I, _I, _I,
+                              _P, _I, _P, _P, _P, _P]),
     },
 }
 
@@ -219,13 +243,23 @@ def bump(name: str) -> None:
     LAUNCHES[name] += 1
 
 
+def bump_host(name: str) -> None:
+    HOST_STRING_PASSES[name] += 1
+
+
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in HOST_STRING_PASSES:
+        HOST_STRING_PASSES[k] = 0
 
 
 def counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def host_counts() -> Dict[str, int]:
+    return dict(HOST_STRING_PASSES)
 
 
 def build_seconds() -> float:

@@ -53,7 +53,20 @@ def murmur3(cols: Sequence[Column], capacity: int, seed=SEED,
     ``seed`` is an int or an int32[cap] tensor of per-row seeds. With
     ``num_partitions`` n > 0 the partition id ``pmod(hash, n)`` is written
     for rows below ``num_rows`` (an int or a 0-d tensor) and n for the
-    padding rows; ``want_hash=False`` skips the hash output."""
+    padding rows; ``want_hash=False`` skips the hash output. More than
+    MAX_KEYS columns go in blocks: murmur3 chains the columns through the
+    seed, so each block's per-row hash seeds the next block."""
+    blocks = K.key_blocks(cols)
+    for block in blocks[:-1]:
+        seed, _ = _murmur3_block(block, capacity, seed, 0, None, True)
+    return _murmur3_block(blocks[-1], capacity, seed, num_partitions,
+                          num_rows, want_hash)
+
+
+def _murmur3_block(cols: Sequence[Column], capacity: int, seed,
+                   num_partitions: int, num_rows, want_hash: bool
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K11 over at most MAX_KEYS columns (the twin for CPU tensors)."""
     device = cols[0].device if cols else seed.device
     if device.type == "cpu":
         h, pid = _murmur3_torch(cols, capacity, seed, num_partitions,

@@ -34,6 +34,9 @@ from ..columnar.column import Column
 
 _MIN_I64 = -(1 << 63)
 _LANE_BITS = 63
+# key descriptors one K2, K3 or K11 call takes (csrc/keys_common.cuh
+# MAX_KEYS); a longer key list goes in blocks of at most this many
+MAX_KEYS = 8
 
 
 class SortKey(NamedTuple):
@@ -79,11 +82,23 @@ def _value_bits(col: Column) -> int:
     return 8 * width
 
 
-def lane_count(keys: Sequence[SortKey]) -> int:
-    """Number of 63-bit lanes the keys' bit string needs (pad rank, then a
-    null rank and the value bits per key)."""
+def key_blocks(items: Sequence) -> List[Sequence]:
+    """``items`` (keys or key columns) in blocks of at most MAX_KEYS, in
+    order; no key gives one empty block."""
+    return [items[i:i + MAX_KEYS]
+            for i in range(0, len(items), MAX_KEYS)] or [items[:0]]
+
+
+def _block_lane_count(keys: Sequence[SortKey]) -> int:
     bits = 1 + sum(1 + _value_bits(k.column) for k in keys)
     return -(-bits // _LANE_BITS)
+
+
+def lane_count(keys: Sequence[SortKey]) -> int:
+    """Number of 63-bit lanes the keys need: per block of MAX_KEYS keys,
+    the lanes of its bit string (pad rank, then a null rank and the value
+    bits per key), the blocks' lanes one after another."""
+    return sum(_block_lane_count(b) for b in key_blocks(keys))
 
 
 def _check_key_column(col: Column, capacity: int, device) -> None:
@@ -104,8 +119,9 @@ def _check_key_column(col: Column, capacity: int, device) -> None:
 
 def _key_descs(cols: Sequence[Column], ascending: Sequence[bool],
                nulls_first: Sequence[bool]):
-    if len(cols) > 8:
-        raise NotImplementedError("at most 8 key columns per kernel call")
+    if len(cols) > MAX_KEYS:
+        raise ValueError(f"a kernel call takes at most {MAX_KEYS} key "
+                         "columns: split them with key_blocks")
     descs = (native.KeyDesc * max(1, len(cols)))()
     for i, (c, asc, nf) in enumerate(zip(cols, ascending, nulls_first)):
         kind, width = _key_kind(c)
@@ -137,7 +153,13 @@ def sort_key_lanes(keys: Sequence[SortKey], num_rows, capacity: int,
                    live_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int64[lanes, capacity]: the keys' order-preserving lanes, most
     significant first. Padding rows (``>= num_rows``, or dead rows of
-    ``live_mask``) rank last."""
+    ``live_mask``) rank last. More than MAX_KEYS keys go in blocks, each
+    block's lanes (its own pad rank first) after the previous block's: the
+    lexicographic order of the lanes is still the keys' order."""
+    blocks = key_blocks(keys)
+    if len(blocks) > 1:
+        return torch.cat([sort_key_lanes(b, num_rows, capacity, live_mask)
+                          for b in blocks])
     device = keys[0].column.device if keys else live_mask.device
     if device.type == "cpu":
         return _sort_key_lanes_torch(keys, num_rows, capacity, live_mask)
@@ -392,10 +414,17 @@ def segment_bounds(key_cols: Sequence[Column], n_live, capacity: int
     """(starts bool[cap], seg_ids int32[cap], n_groups int32 0-d,
     first_row int32[cap]) of key-sorted columns whose first ``n_live`` rows
     (an int or a 0-d tensor) are live. ``first_row[:n_groups]`` holds each
-    group's first row; the rest of it is the other rows in order."""
+    group's first row; the rest of it is the other rows in order. More
+    than MAX_KEYS columns go in blocks: a row starts a group when any block
+    differs from the row before (one flags pass per block, then one
+    scan)."""
+    blocks = key_blocks(key_cols)
     device = key_cols[0].device
     if device.type == "cpu":
-        return _segment_bounds_torch(key_cols, n_live, capacity)
+        starts = None
+        for block in blocks:
+            starts = _starts_torch(block, n_live, capacity, starts)
+        return _bounds_from_starts_torch(starts)
     if device.type != "cuda":
         raise RuntimeError(f"segment_bounds: unsupported device {device}")
     for c in key_cols:
@@ -408,23 +437,28 @@ def segment_bounds(key_cols: Sequence[Column], n_live, capacity: int
     scratch = torch.empty(int(lib.segment_bounds_scratch_bytes(capacity)),
                           dtype=torch.uint8, device=device)
     n_t = _count_tensor(n_live, device)
-    descs = _key_descs(key_cols, [True] * len(key_cols),
-                       [True] * len(key_cols))
-    rc = lib.segment_bounds(descs, len(key_cols), n_t.data_ptr(), capacity,
-                            starts.data_ptr(), seg_ids.data_ptr(),
-                            first_row.data_ptr(), n_groups.data_ptr(),
-                            scratch.data_ptr(), native.stream_ptr(device))
-    native.check(rc, "segment_bounds")
-    native.bump("segment_bounds")
+    for b, block in enumerate(blocks):
+        descs = _key_descs(block, [True] * len(block), [True] * len(block))
+        rc = lib.segment_bounds(descs, len(block), int(b > 0),
+                                int(b == len(blocks) - 1), n_t.data_ptr(),
+                                capacity, starts.data_ptr(),
+                                seg_ids.data_ptr(), first_row.data_ptr(),
+                                n_groups.data_ptr(), scratch.data_ptr(),
+                                native.stream_ptr(device))
+        native.check(rc, "segment_bounds")
+        native.bump("segment_bounds")
     return starts, seg_ids, n_groups.reshape(()), first_row
 
 
-def _starts_torch(key_cols: Sequence[Column], n_live, capacity: int
-                  ) -> torch.Tensor:
+def _starts_torch(key_cols: Sequence[Column], n_live, capacity: int,
+                  starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The group starts of one block of keys, OR-ed into ``starts`` (an
+    earlier block's) when given."""
     device = key_cols[0].device
     idx = torch.arange(capacity, device=device)
     live = idx < n_live
-    changed = torch.zeros(capacity, dtype=torch.bool, device=device)
+    changed = torch.zeros(capacity, dtype=torch.bool, device=device) \
+        if starts is None else starts
     for col in key_cols:
         prev_valid = torch.cat([col.validity[:1], col.validity[:-1]])
         vdiff = col.validity != prev_valid
@@ -442,8 +476,12 @@ def _starts_torch(key_cols: Sequence[Column], n_live, capacity: int
 
 
 def _segment_bounds_torch(key_cols: Sequence[Column], n_live, capacity: int):
-    """Plain PyTorch twin of K3."""
-    starts = _starts_torch(key_cols, n_live, capacity)
+    """Plain PyTorch twin of K3 (all keys in one pass)."""
+    return _bounds_from_starts_torch(_starts_torch(key_cols, n_live,
+                                                   capacity))
+
+
+def _bounds_from_starts_torch(starts: torch.Tensor):
     seg_ids = (torch.cumsum(starts.to(torch.int32), 0) - 1).to(torch.int32)
     n_groups = starts.sum().to(torch.int32)
     perm, _ = _compaction_indices_torch(starts)

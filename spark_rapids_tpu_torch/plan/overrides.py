@@ -12,7 +12,9 @@ repartition, then inserts the batch-coalescing transitions. These are the
 reference's plans without adaptive execution and without a device mesh.
 The port has no CPU engine yet, so anything else raises
 NotImplementedError naming the operator: nothing runs on the host in its
-place.
+place. So does an ``incompat`` expression (Upper, Lower, InitCap: ASCII-only
+case mapping) while ``spark.rapids.tpu.sql.incompatibleOps.enabled`` is
+off, where the reference sends it to its host engine.
 """
 
 from __future__ import annotations
@@ -53,9 +55,26 @@ class Overrides:
         return int(self.conf.get(cfg.SHUFFLE_PIPELINE_DEPTH))
 
     def apply(self, plan: lp.LogicalPlan) -> ph.TpuExec:
+        self._check_incompat(plan)
         plan = _prune_scan_columns(plan)
         node = self._convert(plan)
         return self._insert_coalesce(node)
+
+    def _check_incompat(self, p: lp.LogicalPlan) -> None:
+        """The reference's incompat rule (plan/overrides.py:104-106,
+        179-185): an expression whose results differ from Spark's in
+        corner cases runs only with INCOMPATIBLE_OPS on."""
+        if self.conf.get(cfg.INCOMPATIBLE_OPS):
+            return
+        for e in p.expressions():
+            for node in e.collect(lambda x: getattr(x, "incompat", False)):
+                raise NotImplementedError(
+                    f"{type(node).__name__} is incompatible (ASCII-only case "
+                    f"mapping); enable it with {cfg.INCOMPATIBLE_OPS.key} "
+                    "(the reference runs it on its host engine, which the "
+                    "PyTorch engine does not have)")
+        for c in p.children:
+            self._check_incompat(c)
 
     def _convert(self, p: lp.LogicalPlan) -> ph.TpuExec:
         kids = [self._convert(c) for c in p.children]

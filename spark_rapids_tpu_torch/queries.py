@@ -1,6 +1,7 @@
-"""TPC-H q1, q3, q4, q6, q12, q13, q11 and q15 on the port's DataFrame API:
-the same expressions as benchmarks/queries.py (which builds them on the
-JAX package's API), and ``headline``: the session form of the root bench.py's
+"""TPC-H q1, q2, q3, q4, q5, q6, q10, q11, q12, q13, q14, q15, q17, q18,
+q19, q20 and q22 on the port's DataFrame API: the same expressions as
+benchmarks/queries.py (which builds them on the JAX package's API), and
+``headline``: the session form of the root bench.py's
 pipeline (filter -> project -> dense-range group-by) over its data
 (:func:`build_inputs`, :func:`headline_table`).
 
@@ -15,10 +16,12 @@ import numpy as np
 from .api import functions as F
 from .api.functions import col, lit
 
-# 1994-01-01 / 1995-01-01 / 1995-03-15 / 1998-09-02 as days since epoch
+# 1994-01-01 / 1995-01-01 / 1995-03-15 / 1995-09-01 / 1998-09-02 as days
+# since epoch
 _D_1994_01_01 = 8766
 _D_1995_01_01 = 9131
 _D_1995_03_15 = 9204
+_D_1995_09_01 = 9374
 _D_1998_09_02 = 10471
 
 
@@ -148,6 +151,185 @@ def q4(t):
             .orderBy("o_orderpriority"))
 
 
+def q14(t):
+    """Promotion effect: join + conditional aggregate ratio."""
+    l = t["lineitem"].filter((col("l_shipdate") >= lit(_D_1995_09_01)) &
+                             (col("l_shipdate") < lit(_D_1995_09_01 + 30)))
+    p = t["part"]
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    promo = F.when(col("p_type").startswith("PROMO"),
+                   disc_price).otherwise(lit(0.0))
+    return (l.join(p, on=(col("l_partkey") == col("p_partkey")))
+            .agg((lit(100.0) * F.sum(promo) / F.sum(disc_price))
+                 .alias("promo_revenue")))
+
+
+def q18(t):
+    """Large-volume customers: self-join through a filtered aggregate
+    (the HAVING-subquery shape), then a 3-way join + top-N. Threshold
+    tuned to the generator's order sizes (TPC-H uses 300)."""
+    l = t["lineitem"]
+    big = (l.groupBy("l_orderkey")
+           .agg(F.sum("l_quantity").alias("sum_qty"))
+           .filter(col("sum_qty") > lit(120)))
+    o = t["orders"]
+    c = t["customer"]
+    return (big.join(o, on=(col("l_orderkey") == col("o_orderkey")))
+            .join(c, on=(col("o_custkey") == col("c_custkey")))
+            .select(col("c_name"), col("c_custkey"), col("o_orderkey"),
+                    col("o_orderdate"), col("o_totalprice"),
+                    col("sum_qty"))
+            .orderBy(col("o_totalprice").desc(), col("o_orderdate").asc())
+            .limit(100))
+
+
+def q5(t):
+    """Local supplier volume: 6-way join through nation/region."""
+    revenue = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    r = t["region"].filter(col("r_name") == lit("ASIA"))
+    n = t["nation"].join(r, on=(col("n_regionkey") == col("r_regionkey")))
+    s = t["supplier"].join(n, on=(col("s_nationkey") == col("n_nationkey")))
+    o = t["orders"].filter((col("o_orderdate") >= lit(_D_1994_01_01)) &
+                           (col("o_orderdate") < lit(_D_1995_01_01)))
+    c = t["customer"]
+    return (c.join(o, on=(col("c_custkey") == col("o_custkey")))
+            .join(t["lineitem"],
+                  on=(col("o_orderkey") == col("l_orderkey")))
+            .join(s, on=[col("l_suppkey") == col("s_suppkey"),
+                         col("c_nationkey") == col("s_nationkey")])
+            .groupBy("n_name")
+            .agg(F.sum(revenue).alias("revenue"))
+            .orderBy(col("revenue").desc()))
+
+
+def q10(t):
+    """Returned item reporting: 4-way join + revenue top-20."""
+    o = t["orders"].filter((col("o_orderdate") >= lit(_D_1994_01_01)) &
+                           (col("o_orderdate") < lit(_D_1994_01_01 + 91)))
+    l = t["lineitem"].filter(col("l_returnflag") == lit("R"))
+    revenue = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (t["customer"]
+            .join(o, on=(col("c_custkey") == col("o_custkey")))
+            .join(l, on=(col("o_orderkey") == col("l_orderkey")))
+            .join(t["nation"],
+                  on=(col("c_nationkey") == col("n_nationkey")))
+            .groupBy("c_custkey", "c_name", "c_acctbal", "n_name")
+            .agg(F.sum(revenue).alias("revenue"))
+            .orderBy(col("revenue").desc(), col("c_custkey").asc())
+            .limit(20))
+
+
+def q17(t):
+    """Small-quantity-order revenue: correlated avg subquery -> per-part
+    aggregate joined back (the reference plans the same decorrelation)."""
+    p = t["part"].filter((col("p_brand") == lit("Brand#23")) &
+                         (col("p_container") == lit("MED BOX")))
+    l = t["lineitem"]
+    avg_qty = (l.groupBy("l_partkey")
+               .agg((lit(0.2) * F.avg("l_quantity")).alias("qty_limit"))
+               .withColumnRenamed("l_partkey", "al_partkey"))
+    return (l.join(p, on=(col("l_partkey") == col("p_partkey")))
+            .join(avg_qty, on=(col("l_partkey") == col("al_partkey")))
+            .filter(col("l_quantity") < col("qty_limit"))
+            .agg((F.sum("l_extendedprice") / lit(7.0)).alias("avg_yearly")))
+
+
+def q19(t):
+    """Discounted revenue: disjunctive join predicate over part attrs."""
+    l = t["lineitem"].filter(
+        col("l_shipmode").isin("AIR", "REG AIR"))
+    p = t["part"]
+    revenue = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    cond1 = ((col("p_brand") == lit("Brand#12")) &
+             col("p_container").isin("SM CASE", "SM BOX") &
+             (col("l_quantity") >= lit(1)) & (col("l_quantity") <= lit(11)) &
+             (col("p_size") <= lit(5)))
+    cond2 = ((col("p_brand") == lit("Brand#23")) &
+             col("p_container").isin("MED BAG", "MED BOX") &
+             (col("l_quantity") >= lit(10)) & (col("l_quantity") <= lit(20)) &
+             (col("p_size") <= lit(10)))
+    cond3 = ((col("p_brand") == lit("Brand#34")) &
+             col("p_container").isin("LG CASE", "LG BOX") &
+             (col("l_quantity") >= lit(20)) & (col("l_quantity") <= lit(30)) &
+             (col("p_size") <= lit(15)))
+    return (l.join(p, on=(col("l_partkey") == col("p_partkey")))
+            .filter(cond1 | cond2 | cond3)
+            .agg(F.sum(revenue).alias("revenue")))
+
+
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+
+
+def q22(t):
+    """Global sales opportunity: scalar avg subquery (cross join) + NOT
+    EXISTS (left anti) + substring country codes."""
+    cntry = F.substring(col("c_phone"), 1, 2)
+    cust = t["customer"].filter(cntry.isin(*Q22_CODES))
+    avg_bal = (cust.filter(col("c_acctbal") > lit(0.0))
+               .agg(F.avg("c_acctbal").alias("avg_bal")))
+    return (cust.crossJoin(avg_bal)
+            .filter(col("c_acctbal") > col("avg_bal"))
+            .join(t["orders"],
+                  on=(col("c_custkey") == col("o_custkey")),
+                  how="left_anti")
+            .withColumn("cntrycode", cntry)
+            .groupBy("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum("c_acctbal").alias("totacctbal"))
+            .orderBy("cntrycode"))
+
+
+def q2(t):
+    """Minimum-cost supplier: correlated min subquery decorrelated into a
+    per-part min over the region-filtered partsupp, joined back on
+    (partkey, supplycost)."""
+    r = t["region"].filter(col("r_name") == lit("EUROPE"))
+    n = t["nation"].join(r, on=(col("n_regionkey") == col("r_regionkey")))
+    s = t["supplier"].join(n, on=(col("s_nationkey") == col("n_nationkey")))
+    eu_ps = t["partsupp"].join(
+        s, on=(col("ps_suppkey") == col("s_suppkey")))
+    min_cost = (eu_ps.groupBy("ps_partkey")
+                .agg(F.min("ps_supplycost").alias("min_cost"))
+                .withColumnRenamed("ps_partkey", "mc_partkey"))
+    p = t["part"].filter((col("p_size") == lit(15)) &
+                         col("p_type").endswith("BRASS"))
+    return (p.join(eu_ps, on=(col("p_partkey") == col("ps_partkey")))
+            .join(min_cost,
+                  on=[col("p_partkey") == col("mc_partkey"),
+                      col("ps_supplycost") == col("min_cost")])
+            .select(col("s_acctbal"), col("s_name"), col("n_name"),
+                    col("p_partkey"), col("p_type"))
+            .orderBy(col("s_acctbal").desc(), col("n_name").asc(),
+                     col("s_name").asc(), col("p_partkey").asc())
+            .limit(100))
+
+
+def q20(t):
+    """Potential part promotion: nested IN subqueries decorrelated (the
+    reference's p_name LIKE adapted to p_type contains)."""
+    p = t["part"].filter(col("p_type").contains("TIN"))
+    li94 = (t["lineitem"]
+            .filter((col("l_shipdate") >= lit(_D_1994_01_01)) &
+                    (col("l_shipdate") < lit(_D_1995_01_01)))
+            .groupBy("l_partkey", "l_suppkey")
+            .agg((lit(0.5) * F.sum("l_quantity")).alias("half_qty")))
+    qualifying = (t["partsupp"]
+                  .join(p, on=(col("ps_partkey") == col("p_partkey")),
+                        how="left_semi")
+                  .join(li94,
+                        on=[col("ps_partkey") == col("l_partkey"),
+                            col("ps_suppkey") == col("l_suppkey")])
+                  .filter(col("ps_availqty") > col("half_qty")))
+    n = t["nation"].filter(col("n_name") == lit("CANADA"))
+    return (t["supplier"]
+            .join(n, on=(col("s_nationkey") == col("n_nationkey")))
+            .join(qualifying,
+                  on=(col("s_suppkey") == col("ps_suppkey")),
+                  how="left_semi")
+            .select(col("s_name"))
+            .orderBy("s_name"))
+
+
 HEADLINE_KEYS = 1024
 
 
@@ -188,19 +370,32 @@ def headline(t):
 
 
 QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12, "q13": q13,
-           "q11": q11, "q15": q15, "headline": headline}
-# the tables each query reads
+           "q11": q11, "q15": q15, "q22": q22, "q2": q2, "q17": q17,
+           "q5": q5, "q10": q10, "q14": q14, "q18": q18, "q19": q19,
+           "q20": q20, "headline": headline}
+# the tables each query reads, its largest last
 TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q3": ("customer", "orders", "lineitem"),
           "q12": ("orders", "lineitem"), "q4": ("orders", "lineitem"),
           "q13": ("customer", "orders"),
           "q11": ("nation", "supplier", "partsupp"),
-          "q15": ("supplier", "lineitem")}
+          "q15": ("supplier", "lineitem"),
+          "q22": ("customer", "orders"),
+          "q2": ("region", "nation", "supplier", "part", "partsupp"),
+          "q17": ("part", "lineitem"),
+          "q5": ("region", "nation", "supplier", "customer", "orders",
+                 "lineitem"),
+          "q10": ("nation", "customer", "orders", "lineitem"),
+          "q14": ("part", "lineitem"),
+          "q18": ("customer", "orders", "lineitem"),
+          "q19": ("part", "lineitem"),
+          "q20": ("nation", "supplier", "part", "partsupp", "lineitem")}
 
 
 def table_schema(columns) -> dict:
     """SQL types numpy TPC-H columns need beyond their numpy dtypes: every
     ``*date`` column is a DATE. The other columns of lineitem, orders,
-    customer, supplier, partsupp and nation (keys, quantities, prices,
-    names, comments) keep the types their numpy arrays give them."""
+    customer, supplier, partsupp, nation, part and region (keys,
+    quantities, prices, names, comments, phones, part attributes) keep the
+    types their numpy arrays give them."""
     return {name: "date" for name in columns if name.endswith("date")}

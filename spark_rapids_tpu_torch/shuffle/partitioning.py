@@ -36,11 +36,6 @@ from ..ops import hashing
 from ..ops import joins as join_k
 from ..ops import kernels as K
 
-# the kernel keeps one counter per partition (and one for padding) in
-# shared memory
-MAX_PARTITIONS = 4096
-
-
 # ---------------------------------------------------------------------------
 # K12: partition split
 # ---------------------------------------------------------------------------
@@ -50,12 +45,12 @@ def partition_split(pids: torch.Tensor, num_rows, num_partitions: int
     """(perm int64[cap], counts int32[n]): the rows ordered stably by
     partition id, rows at or past ``num_rows`` (an int or a 0-d tensor)
     last, and the rows of each partition. Equals
-    ``argsort(where(live, pids, n), stable=True)`` and its bincount."""
+    ``argsort(where(live, pids, n), stable=True)`` and its bincount. Any
+    number of partitions: up to 4096 the kernel keeps its counters in
+    shared memory, above that in device memory."""
     n = int(num_partitions)
-    if not 1 <= n <= MAX_PARTITIONS:
-        raise ValueError(
-            f"partition_split takes 1 to {MAX_PARTITIONS} partitions, got "
-            f"{n}: the kernel keeps its counters in shared memory")
+    if n < 1:
+        raise ValueError(f"partition_split needs a partition, got {n}")
     device = pids.device
     if device.type == "cpu":
         return _partition_split_torch(pids, num_rows, n)

@@ -319,8 +319,18 @@ def test_order_by_over_partitions_is_a_range_exchange():
 
 
 def test_more_partitions_than_the_kernel_holds_raise():
+    """What this checks: an 8192-partition hash split equals the JAX
+    engine's, partition ids and pieces bit for bit. The name is from when
+    K12 refused more than the 4096 partitions whose counters fit in its
+    shared memory; above that it now keeps them in device memory, with no
+    limit, as in the reference. 8192 is a power of two because the
+    reference's size-class gate (tests/test_zz_recompile_gate.py) flags
+    any other count its split compiles in the same process; 5000
+    partitions are held to a stable sort in tests/test_torch_keys.py."""
     rng = np.random.default_rng(15)
-    _jb, pb = _batches(rng)
-    with pytest.raises(ValueError, match="4096"):
-        PP.HashPartitioner(PP.MAX_PARTITIONS + 1,
-                           _refs(pex, COLS, (0,))).split(pb)
+    jb, pb = _batches(rng)
+    ppart = PP.HashPartitioner(8192, _refs(pex, COLS, (0,)))
+    jpart = JP.HashPartitioner(8192, _refs(jex, COLS, (0,)))
+    np.testing.assert_array_equal(ppart.partition_ids(pb).numpy()[:N],
+                                  np.asarray(jpart.partition_ids(jb))[:N])
+    _assert_pieces_equal(jpart.split(jb), ppart.split(pb))

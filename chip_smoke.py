@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 10] [--seed 7]
+    python3 chip_smoke.py [--sf 10] [--seed 7] [--only check_k19,...]
 
 Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every hand-written kernel from csrc/ with nvcc (sm_90a),
-     timed; every kernel is rebuilt, whatever _build/ already holds;
-  3. each kernel (K1-K18, K7's outer mode and K13's locate mode) against
+     timed; every kernel is rebuilt, whatever _build/ already holds; then
+     the generated stage kernels of the main path's plans (planned over
+     tiny tables) compiled by NVRTC and loaded, counted and timed;
+  3. each kernel (K1-K20, K7's outer mode, K13's locate mode and K1's
+     fold alone) against
      its plain PyTorch twin on the card, at the main path's shapes and at
      edge cases, with the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
@@ -26,11 +29,18 @@ Phases, each printing one JSON line:
      UTF-8 rows (1-4-byte characters, leading continuation bytes, junk
      past the lengths, NULL and dead rows) at widths 8 to 256, and timed
      over o_comment (K16, K18, locate) and q22's c_phone batch (K17);
+     K19 (fused_stage) against the eager chain of q6's filter, q1's
+     filter -> aggregate inputs, the headline's chain, q7's stages (string
+     equality, year) and two random chains over every generated family
+     (NULL, NaN, +-inf, the integer extremes, days +-800000), K20
+     (fused_reduce) + K1's fold against the eager chain + K1 on q6's batch
+     and on every aggregate op, bit for bit, all at 2^20 rows;
      then K2, K3 and K11 at 9 and 17 key columns (their wrappers split the
      keys into blocks of 8) against their one-pass twins, and K12 at 5000
      and 65536 partitions (its device-memory counters);
-  4. the main path: TPC-H q6, q1, q3, q12, q4, q13, q11, q15, q22, q2,
-     q17, q5, q10, q14, q18, q19 and q20 through
+  4. the main path, whole-stage fusion at its default (on): TPC-H q6,
+     q1, q3, q12, q4, q13, q11, q15, q22, q2, q17, q5, q10, q14, q18, q19,
+     q20, q7, q8 and q9 through
      TpuSession -> DataFrame -> collect on benchmarks/datagen.py lineitem,
      orders, customer, supplier, partsupp, nation, part and region data at
      scale factor --sf, then the root bench.py's headline
@@ -43,7 +53,7 @@ Phases, each printing one JSON line:
      Spark's rules, with the host passes of the general LIKE and replace
      counted; the launch counters are zeroed just before and read
      just after, and every kernel of each query's path must have launched
-     in its cold run; the warm runs must be served from the device scan
+     in its cold run, the generated kernels of its plan's units included; the warm runs must be served from the device scan
      cache (no column uploaded or evicted, no cache entry refused); q3,
      q12, q4 and q13 must run on the reference's shuffled plan (hash
      exchanges, shuffled joins, a range exchange under the sort; q13's
@@ -53,9 +63,11 @@ Phases, each printing one JSON line:
      depths 48, 8 and 1 (hot time and device peak at each), q3 and q4
      in the shuffled and the broadcast join form (join_form_ab), q11 at
      the TPC-H fraction 0.0001 / SF (q11_scaled, which must return rows),
-     and the right and full outer joins in both forms (outer_forms: q13
+     the right and full outer joins in both forms (outer_forms: q13
      written as a right join, customer full outer join the filtered
-     orders);
+     orders), and q6, q1, q3, q7 and the headline with fusion on and off
+     (fusion_ab: hot time, hot peak, the update stage's device kernels per
+     scan batch and a hot run's top device kernels, from torch.profiler);
   5. the port bench's hand-built headline pipeline, once at 64 M rows,
      validated against the numpy oracle.
 Then the kernel summary line, the card line and, last, the result line
@@ -73,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1865,6 +1878,385 @@ WIDE_KEY_TYPES = ("bigint", "string", "double", "int", "boolean", "date",
                   "float", "smallint")
 
 
+# ---------------------------------------------------------------------------
+# Generated stage kernels (K19 fused_stage, K20 fused_reduce)
+# ---------------------------------------------------------------------------
+
+GEN_SOURCE = "spark_rapids_tpu_torch/plan/stage_codegen.py"
+# nation names the q7/q8 string columns draw from (with NULLs)
+NATION_WORDS = ("FRANCE", "GERMANY", "BRAZIL", "ALGERIA", "", "FRANCEX",
+                "UNITED STATES")
+
+
+def tiny_tpch():
+    """benchmarks/datagen.py tables at SF 0.001: the plans whose stages
+    the kernel checks take (a stage's source depends on its expressions,
+    not on the data's size)."""
+    from benchmarks import datagen
+    sf = 0.001
+    return {"lineitem": datagen.gen_lineitem(sf),
+            "orders": datagen.gen_orders(sf),
+            "customer": datagen.gen_customer(sf),
+            "supplier": datagen.gen_supplier(sf),
+            "partsupp": datagen.gen_partsupp(sf),
+            "nation": datagen.gen_nation(), "part": datagen.gen_part(sf),
+            "region": datagen.gen_region()}
+
+
+def tiny_session(device):
+    """(session on ``device``, the tiny tables and a 1000-row headline as
+    its DataFrames)."""
+    from spark_rapids_tpu_torch import queries
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    session = TpuSession.builder.config(
+        {"spark.rapids.torch.device": str(device)}).getOrCreate()
+    t = {k: session.createDataFrame(v, schema=queries.table_schema(v))
+         for k, v in tiny_tpch().items()}
+    t["headline"] = session.createDataFrame(queries.headline_table(1000))
+    return session, t
+
+
+def plan_units(session, df):
+    """The fused units of ``df``'s plan that carry a generated kernel."""
+    plan = session.plan(df._analyzed())
+    return [n for n in _plan_nodes(plan)
+            if getattr(n, "kernel", None) is not None]
+
+
+def word_column(rng, words, cap: int, n: int, device, width: int = 16):
+    """A STRING column of ``words`` drawn at random, 10% NULL, built as
+    the byte matrix directly (no per-row encoding)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    table = np.zeros((len(words), width), np.uint8)
+    lens = np.zeros(len(words), np.int32)
+    for i, w in enumerate(words):
+        b = w.encode()
+        table[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    pick = rng.integers(0, len(words), cap)
+    valid = (rng.random(cap) >= 0.1) & (np.arange(cap) < n)
+    data = np.where(valid[:, None], table[pick], 0).astype(np.uint8)
+    lengths = np.where(valid, lens[pick], 0).astype(np.int32)
+    return Column(dt.STRING, torch.from_numpy(data).to(device),
+                  torch.from_numpy(valid).to(device),
+                  torch.from_numpy(lengths).to(device))
+
+
+def random_batch(rng, schema, cap: int, n: int, device, extremes: bool):
+    """A batch of ``schema`` with 10% NULLs and dead rows past ``n``:
+    TPC-H-like values, or (``extremes``) NaN, +-inf, +-0.0, the integer
+    extremes and days from -800000 to 800000."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    cols = []
+    for f in schema:
+        t = f.dtype
+        if t == dt.STRING:
+            cols.append(word_column(rng, NATION_WORDS, cap, n, device))
+            continue
+        if t == dt.BOOL:
+            vals = rng.random(n) < 0.5
+        elif t == dt.DATE:
+            vals = (rng.integers(-800000, 800001, n) if extremes else
+                    rng.integers(8036, 10592, n)).astype(np.int32)
+        elif t.is_floating:
+            vals = (rng.normal(0, 1e4, n) if extremes else
+                    np.round(rng.uniform(0, 1e5, n), 2)).astype(
+                t.numpy_dtype)
+            if extremes:
+                pick = rng.random(n) < 0.2
+                vals[pick] = rng.choice(
+                    [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -2.5],
+                    int(pick.sum()))
+            elif f.name.endswith("discount") or f.name.endswith("tax"):
+                vals = np.round(rng.uniform(0, 0.1, n), 2).astype(
+                    t.numpy_dtype)
+        else:
+            info = np.iinfo(t.numpy_dtype)
+            vals = rng.integers(max(info.min, -10 ** 6),
+                                min(info.max, 10 ** 6), n).astype(
+                t.numpy_dtype)
+            if extremes:
+                pick = rng.random(n) < 0.2
+                vals[pick] = rng.choice([info.min, info.max, -1, 0, 1],
+                                        int(pick.sum()))
+        valid = rng.random(n) >= 0.1
+        cols.append(Column.from_numpy(vals, t, valid, capacity=cap,
+                                      device=device))
+    return ColumnarBatch(schema, cols, n)
+
+
+def eager_unit(node, batch):
+    """(columns, keep mask or None) of a fused unit by its eager torch
+    ops, in the generated kernel's output order."""
+    import torch
+    from spark_rapids_tpu_torch.ops import expressions as ex
+    from spark_rapids_tpu_torch.plan import physical as ph
+    from spark_rapids_tpu_torch.plan import stage_compiler as sc
+    if isinstance(node, sc.TpuWholeStageExec):
+        b, mask = node.chain.eval(batch)
+        return b.columns, mask
+    if isinstance(node, ph.TpuProjectExec):
+        return [ex.materialize(e.eval(batch), batch) for e in node.exprs], \
+            None
+    if isinstance(node, (ph.TpuFilterExec, types.SimpleNamespace)):
+        pred = node.condition.eval(batch)
+        return [], pred.data & pred.validity & batch.row_mask_raw()
+    keys, cols, mask = node.eager_update_inputs(batch)
+    key_slots, leaf_slots = node._prologue_slots
+    out = dict(zip(key_slots, keys))
+    out.update((i, c) for i, c in zip(leaf_slots, cols) if i is not None)
+    return [out[i] for i in range(len(out))], mask
+
+
+def unit_bytes(kernel, batch) -> int:
+    """Bytes one K19 launch must move: every input column it reads once
+    (data, validity, string lengths), every output it writes once, the
+    keep mask."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    cap = batch.capacity
+    total = 0
+    for ordinal in kernel._inputs:
+        c = batch.columns[ordinal]
+        total += c.data.numel() * c.data.element_size() + cap
+        if c.dtype == dt.STRING:
+            total += cap * 4
+    for kind in kernel.out_kinds:
+        if kind[0] == "gen":
+            total += cap * (kind[1].byte_width + 1)
+    if kernel.mask_word is not None:
+        total += cap
+    return total
+
+
+def hold_unit(node, batch, rel: float, what: str) -> float:
+    """One K19 launch of a unit against its eager ops: every output's data
+    and validity, and the keep mask, bit for bit (``rel`` for the
+    transcendental families). Returns the largest float error."""
+    import torch
+    outs, mask = node.kernel.launch(batch)
+    want, want_mask = eager_unit(node, batch)
+    if (mask is None) != (want_mask is None) or (
+            mask is not None and not torch.equal(mask, want_mask)):
+        raise AssertionError(f"K19 {what}: the keep mask differs")
+    if len(outs) != len(want):
+        raise AssertionError(f"K19 {what}: {len(outs)} outputs, eager "
+                             f"{len(want)}")
+    err = 0.0
+    for i, (g, w) in enumerate(zip(outs, want)):
+        if g.dtype.name == "string":
+            if g is not w and not torch.equal(g.data, w.data):
+                raise AssertionError(f"K19 {what}: string output {i}")
+            continue
+        err = max(err, column_err(g, w, rel, f"K19 {what} output {i}"))
+    return err
+
+
+def random_chain_df(F, t):
+    """A select touching every generated family over random columns: the
+    scalar arithmetic, conditionals, predicates, casts, dates and math."""
+    c = F.col
+    return t.select(
+        (c("x") + c("y")).alias("add"), (c("x") * c("y") - c("x") /
+                                        c("y")).alias("muldiv"),
+        F.pmod(c("l"), F.lit(7)).alias("pmod"), (c("l") % c("m")).alias(
+            "rem"), (-c("i")).alias("neg"), F.abs(c("l")).alias("abs"),
+        F.coalesce(c("x"), c("y"), F.lit(0.5)).alias("coal"),
+        F.nullif(c("i"), F.lit(0)).alias("nullif"),
+        F.greatest(c("x"), c("y")).alias("great"),
+        F.least(c("l"), c("m")).alias("least"),
+        F.when(c("x") > F.lit(0.0), c("y")).when(c("t"), F.lit(1.0))
+        .otherwise(c("x")).alias("case"),
+        F.isnan(c("x")).alias("isnan"), F.isnull(c("y")).alias("isnull"),
+        c("x").eqNullSafe(c("y")).alias("ens"),
+        ((c("x") < c("y")) | ~c("t")).alias("kleene"),
+        c("l").isin(1, -1, 0, 7).alias("isin"),
+        c("x").cast("int").alias("f2i"), c("l").cast("smallint").alias(
+            "narrow"),
+        F.year(c("d")).alias("year"), F.month(c("d")).alias("month"),
+        F.dayofmonth(c("d")).alias("dom"), F.dayofweek(c("d")).alias("dow"),
+        F.dayofyear(c("d")).alias("doy"), F.quarter(c("d")).alias("q"),
+        F.last_day(c("d")).alias("last"),
+        F.add_months(c("d"), c("i")).alias("addm"),
+        F.date_add(c("d"), F.lit(45)).alias("dadd"),
+        F.datediff(c("d"), c("e")).alias("ddiff"),
+        F.floor(c("x")).alias("floor"), F.ceil(c("x")).alias("ceil"),
+        F.round(c("x"), 2).alias("round"))
+
+
+def random_math_df(F, t):
+    """The transcendental functions (libm: ulps, 1e-12 relative)."""
+    c = F.col
+    return t.select(F.sqrt(c("x")).alias("sqrt"), F.exp(c("y")).alias("exp"),
+                    F.log(c("x")).alias("log"), F.sin(c("x")).alias("sin"),
+                    F.cos(c("y")).alias("cos"), F.tan(c("x")).alias("tan"),
+                    F.pow(c("x"), c("y")).alias("pow"),
+                    F.atan2(c("x"), c("y")).alias("atan2"))
+
+
+RANDOM_SCHEMA = (("x", "double"), ("y", "double"), ("l", "bigint"),
+                 ("m", "bigint"), ("i", "int"), ("t", "boolean"),
+                 ("d", "date"), ("e", "date"))
+
+
+def stage_units(device):
+    """(name, unit node, rel) of the chains K19 is held on: q6's filter,
+    q1's filter -> aggregate inputs, the headline's chain, q7's chain
+    (string equality, year), the nation stage of q7, and the random
+    chains over every generated family."""
+    from spark_rapids_tpu_torch import queries
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.plan import stage_codegen as sg
+    session, t = tiny_session(device)
+    units = []
+    q6_agg = plan_units(session, queries.q6(t))[0]
+    # q6's filter alone, as a filter-mode stage over lineitem's columns
+    filters, _cols = sg.inline_chain(q6_agg.pre_stage,
+                                     q6_agg.children[0].schema)
+    if len(filters) != 1:
+        raise AssertionError("q6's chain is not one filter")
+    q6_filter = types.SimpleNamespace(
+        condition=filters[0], kernel=sg.StageKernel(
+            "stage", q6_agg.children[0].schema, filters, []))
+    units.append(("q6 filter", q6_filter, 0.0))
+    units.append(("q1 filter -> aggregate inputs",
+                  plan_units(session, queries.q1(t))[0], 0.0))
+    units.append(("headline chain",
+                  plan_units(session, queries.headline(t))[0], 0.0))
+    for k, node in enumerate(plan_units(session, queries.q7(t))):
+        units.append((f"q7 {type(node).__name__} {k}", node, 0.0))
+    tiny = {name: np.zeros(4, np.int32 if tn in ("int", "date") else
+                           np.bool_ if tn == "boolean" else
+                           np.float64 if tn == "double" else np.int64)
+            for name, tn in RANDOM_SCHEMA}
+    rdf = session.createDataFrame(tiny, schema=dict(RANDOM_SCHEMA))
+    units.append(("random chain, every family",
+                  plan_units(session, random_chain_df(F, rdf))[0], 0.0))
+    units.append(("random chain, transcendental",
+                  plan_units(session, random_math_df(F, rdf))[0], 1e-12))
+    return units
+
+
+def main_path_kernels(device) -> list:
+    """The distinct generated kernels of the main path's plans (every
+    query of MAIN_QUERIES planned over tiny tables): what the build phase
+    compiles. A stage the SF-10 plans hold besides compiles at its first
+    launch."""
+    from spark_rapids_tpu_torch import queries
+    session, t = tiny_session(device)
+    found = {}
+    for name in MAIN_QUERIES:
+        for node in plan_units(session, queries.QUERIES[name](t)):
+            found.setdefault(node.kernel.entry, node.kernel)
+    return list(found.values())
+
+
+def check_k19(device, rng) -> dict:
+    """K19 against the eager chain of each unit on a 2^20-row batch."""
+    import torch
+    cap = 1 << 20
+    n = cap - 4321
+    rows, err = [], 0.0
+    for name, node, rel in stage_units(device):
+        kern = node.kernel
+        extremes = name.startswith("random")
+        batch = random_batch(rng, kern.in_schema, cap, n, device, extremes)
+        err = max(err, hold_unit(node, batch, rel, name))
+        torch.cuda.synchronize()
+        rows.append({
+            "chain": name, "entry": kern.entry,
+            "inputs": len(kern._inputs),
+            "outputs": sum(k[0] == "gen" for k in kern.out_kinds),
+            "mask": kern.mask_word is not None,
+            "ms": time_ms(lambda: kern.launch(batch)),
+            "plain_ms": time_ms(lambda: eager_unit(node, batch), iters=10),
+            "bound_ms": bound_ms(unit_bytes(kern, batch))})
+    main = rows[1]                      # q1's chain: the main path's shape
+    return {"name": "fused_stage", "checks": len(rows), "max_abs_err": err,
+            "tolerance": "integer, bool, date outputs, the keep mask and "
+                         "+ - * / floats bit for bit; transcendental "
+                         "functions relative 1e-12",
+            "chains": rows, "timed_at": main["chain"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a stage"}
+
+
+def check_k20(device, rng) -> dict:
+    """K20 + K1's fold against the unfused path (the eager chain, then K1
+    per aggregate) on q6's 2^20-row batch: bit for bit. Also every op on
+    a random chain, and the fold alone."""
+    import torch
+    from spark_rapids_tpu_torch import queries
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    session, t = tiny_session(device)
+    q6 = plan_units(session, queries.q6(t))[0]
+    tiny = {"x": np.zeros(4), "l": np.zeros(4, np.int64),
+            "d": np.zeros(4, np.int32), "t": np.zeros(4, np.bool_)}
+    rdf = session.createDataFrame(tiny, schema={"d": "date"})
+    c = F.col
+    every = plan_units(session, rdf.filter(c("x") > F.lit(-5000.0)).agg(
+        F.sum(c("x") * F.lit(2.0)).alias("s"), F.count("x").alias("n"),
+        F.count("*").alias("all"), F.min("x").alias("mn"),
+        F.max("x").alias("mx"), F.avg("l").alias("avg"),
+        F.sum("l").alias("sl"), F.min("d").alias("md"),
+        F.max("t").alias("mt"),
+        F.first("l").alias("first"), F.last("x").alias("last")))[0]
+    cap = 1 << 20
+    n = cap - 999
+    checks, err, rows = 0, 0.0, []
+    for name, node, extremes in (("q6", q6, False),
+                                 ("every op", every, True)):
+        batch = random_batch(rng, node.kernel.in_schema, cap, n, device,
+                             extremes)
+        got = node.kernel.reduce(batch, A.REDUCE_SLOTS)
+        kernel = node.kernel
+        node.kernel = None
+        want = node._update(batch).columns
+        node.kernel = kernel
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = max(err, column_err(g, w, 0.0, f"K20 {name} output {i}"))
+            checks += 1
+        if name == "q6":
+            q6_batch = batch
+        rows.append({"stage": name, "entry": kernel.entry,
+                     "aggregates": len(kernel.specs)})
+    kern = q6.kernel
+    nparts = A.masked_reduce_parts(cap)
+    parts = torch.zeros(nparts * 32, dtype=torch.uint8, device=device)
+    fold_ms = time_ms(lambda: A.masked_reduce_fold(
+        "sum", 5, q6.kernel.specs[0][1].dtype, parts, nparts, None, None,
+        A.REDUCE_SLOTS, device))
+
+    def eager():
+        k = q6.kernel
+        q6.kernel = None
+        try:
+            return q6._update(q6_batch)
+        finally:
+            q6.kernel = k
+    return {"name": "fused_reduce", "checks": checks, "max_abs_err": err,
+            "tolerance": "bit for bit against the eager chain + K1 (the "
+                         "same grid, per-thread order and tree)",
+            "stages": rows, "timed_at": "q6's update stage, one 2^20-row "
+                                        "batch (K20 + K1's fold)",
+            "ms": time_ms(lambda: kern.reduce(q6_batch, A.REDUCE_SLOTS)),
+            "plain_ms": time_ms(eager, iters=10),
+            "bound_ms": bound_ms(unit_bytes(kern, q6_batch) +
+                                 nparts * 32 * len(kern.specs)),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a stage",
+            "fold": {"name": "masked_reduce_fold", "checks": checks,
+                     "max_abs_err": err, "ms": fold_ms,
+                     "plain_ms": None,
+                     "bound_ms": bound_ms(nparts * 32 + 128 * 9),
+                     "library_ms": None}}
+
+
 def check_wide_keys(device, rng) -> dict:
     """9 and 17 key columns: K2's blocked lanes against the twin's lanes
     block by block and its order against the one-pass twin's; K3 and K11
@@ -2293,6 +2685,94 @@ def oracle_q20(l, ps, p, s, n):
     return [(str(x),) for x in np.sort(s["s_name"][supp])]
 
 
+def years_of(days: np.ndarray) -> np.ndarray:
+    """The calendar year of each day count since 1970-01-01."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _ps_rows(l, ps):
+    """Row of partsupp holding each line's (partkey, suppkey), -1 where
+    none does."""
+    span = int(max(l["l_suppkey"].max(), ps["ps_suppkey"].max())) + 1
+    psk = ps["ps_partkey"] * span + ps["ps_suppkey"]
+    order = np.argsort(psk, kind="stable")
+    srt = psk[order]
+    lk = l["l_partkey"] * span + l["l_suppkey"]
+    pos = np.minimum(np.searchsorted(srt, lk), len(srt) - 1)
+    return np.where(srt[pos] == lk, order[pos], -1)
+
+
+def oracle_q7(l, o, c, s, n):
+    """Revenue shipped between FRANCE and GERMANY in 1995-1996 by
+    (supplier nation, customer nation, year)."""
+    names = n["n_name"]
+    fr = int(np.nonzero(names == "FRANCE")[0][0])
+    de = int(np.nonzero(names == "GERMANY")[0][0])
+    sd = l["l_shipdate"]
+    si = _by_key(l["l_suppkey"], len(s["s_suppkey"]))
+    ci = _by_key(o["o_custkey"][l["l_orderkey"] - 1], len(c["c_custkey"]))
+    m = (sd >= 9131) & (sd <= 9131 + 730) & (si >= 0) & (ci >= 0)
+    sn = s["s_nationkey"][np.maximum(si, 0)]
+    cn = c["c_nationkey"][np.maximum(ci, 0)]
+    m &= ((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))
+    key = (sn[m] * 25 + cn[m]) * 10000 + years_of(sd[m])
+    vol = l["l_extendedprice"][m] * (1.0 - l["l_discount"][m])
+    keys, inv = np.unique(key, return_inverse=True)
+    sums = np.bincount(inv, weights=vol)
+    rows = [(str(names[k // 10000 // 25]), str(names[k // 10000 % 25]),
+             int(k % 10000), float(v)) for k, v in zip(keys, sums)]
+    return sorted(rows, key=lambda r: (r[0], r[1], r[2]))
+
+
+def oracle_q8(l, o, c, s, n, r, p):
+    """BRAZIL's share of AMERICA's ECONOMY ANODIZED STEEL volume in
+    1995-1996, by order year."""
+    america = np.isin(n["n_regionkey"],
+                      r["r_regionkey"][r["r_name"] == "AMERICA"])
+    pi = _by_key(l["l_partkey"], len(p["p_partkey"]))
+    si = _by_key(l["l_suppkey"], len(s["s_suppkey"]))
+    oi = l["l_orderkey"] - 1
+    od = o["o_orderdate"][oi]
+    ci = _by_key(o["o_custkey"][oi], len(c["c_custkey"]))
+    steel = p["p_type"] == "ECONOMY ANODIZED STEEL"     # per part
+    m = (pi >= 0) & (si >= 0) & (ci >= 0) & (od >= 9131) & \
+        (od <= 9131 + 730)
+    m &= steel[np.maximum(pi, 0)]
+    m &= america[c["c_nationkey"][np.maximum(ci, 0)]]
+    vol = l["l_extendedprice"][m] * (1.0 - l["l_discount"][m])
+    brazil = n["n_name"][s["s_nationkey"][si[m]]] == "BRAZIL"
+    years, inv = np.unique(years_of(od[m]), return_inverse=True)
+    num = np.bincount(inv, weights=np.where(brazil, vol, 0.0))
+    den = np.bincount(inv, weights=vol)
+    return [(int(y), float(a / b)) for y, a, b in zip(years, num, den)]
+
+
+def oracle_q9(l, o, s, ps, n, p):
+    """Profit of BRUSHED parts' lines by (supplier nation, order year),
+    nation ascending, year descending."""
+    pi = _by_key(l["l_partkey"], len(p["p_partkey"]))
+    si = _by_key(l["l_suppkey"], len(s["s_suppkey"]))
+    brushed = np.char.find(p["p_type"], "BRUSHED") >= 0  # per part
+    m = (pi >= 0) & (si >= 0)
+    m &= brushed[np.maximum(pi, 0)]
+    rows = np.nonzero(m)[0]
+    pr = np.full(len(m), -1)
+    pr[rows] = _ps_rows({k: l[k][rows] for k in ("l_partkey", "l_suppkey")},
+                        ps)
+    m &= pr >= 0
+    amount = l["l_extendedprice"][m] * (1.0 - l["l_discount"][m]) - \
+        ps["ps_supplycost"][pr[m]] * l["l_quantity"][m]
+    nation = s["s_nationkey"][si[m]]
+    key = nation * 10000 + years_of(o["o_orderdate"][l["l_orderkey"][m] -
+                                                       1])
+    keys, inv = np.unique(key, return_inverse=True)
+    sums = np.bincount(inv, weights=amount)
+    rows = [(str(n["n_name"][k // 10000]), int(k % 10000), float(v))
+            for k, v in zip(keys, sums)]
+    return sorted(rows, key=lambda r: (r[0], -r[1]))
+
+
 def q11_scaled(t, fraction: float):
     """q11 with its threshold fraction given: benchmarks/queries.py keeps
     0.0001 whatever the scale, which at SF 10 leaves no part above it; the
@@ -2555,9 +3035,15 @@ PATH_KERNELS = {
     "q18": ("sort_key_lanes", "join_probe", "join_expand"),
     "q19": ("compact_scan", "join_probe", "join_expand"),
     "q20": ("find_pattern", "compact_scan", "join_probe"),
+    "q7": ("compact_scan", "join_probe", "join_expand"),
+    "q8": ("compact_scan", "join_probe", "join_expand"),
+    "q9": ("find_pattern", "compact_scan", "join_probe", "join_expand"),
     "string_exprs": ("string_map", "string_slice", "string_place",
                      "find_pattern_locate", "find_pattern"),
 }
+# the counter of each kind of generated kernel a plan's units carry
+GENERATED_COUNTER = {"K19 fused_stage": "fused_stage",
+                     "K20 fused_reduce": "fused_reduce"}
 # the operators q3, q4, q12 and q13 must run on at SF 10: the reference's
 # shuffled plan (their build sides are far above the 10 MiB threshold);
 # q11 and q15 must cross-join their scalar subqueries
@@ -2616,11 +3102,16 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
             f"{name}: warm runs not served from the scan cache "
             f"((bytes, uploads, evicted) {resident} -> {now}, refused "
             f"{cache.refused})")
-    missing = [k for k in PATH_KERNELS[name] if cold_launches[k] <= 0]
+    plan = tables[table].session.last_plan()
+    decisions = tables[table].session.last_fusion_decisions()
+    # every unit the planner gave a generated kernel launches it
+    generated = sorted({GENERATED_COUNTER[kind]
+                        for _label, kind, _e in decisions.generated})
+    missing = [k for k in PATH_KERNELS[name] + tuple(generated)
+               if cold_launches[k] <= 0]
     if missing:
         raise AssertionError(f"{name} did not launch {missing}")
     n_batches = -(-n_rows // (1 << 20))
-    plan = tables[table].session.last_plan()
     operators = plan.operator_tree()
     absent = [op for op in REQUIRED_OPERATORS.get(name, ())
               if op not in operators]
@@ -2654,6 +3145,10 @@ def run_query(name: str, tables, cache, oracle, n_rows: int, device
              "values": w.resolved_scalars, "copies": w.copies}
             for node, w in windows],
         "plan": operators.splitlines(),
+        # the fused units: generated kernels (unit, kind, entry) and the
+        # units left eager with the generator's reason
+        "generated": [list(g) for g in decisions.generated],
+        "not_generated": [list(d) for d in decisions.declined],
         "result_rows": len(rows), "oracle": "numpy, relative 1e-9"}
 
 
@@ -2698,6 +3193,9 @@ def main_path(sf: float, device) -> tuple:
                "q10": oracle_q10(l, o, c, n), "q14": oracle_q14(l, p),
                "q18": oracle_q18(l, o, c), "q19": oracle_q19(l, p),
                "q20": oracle_q20(l, ps, p, s, n),
+               "q7": oracle_q7(l, o, c, s, n),
+               "q8": oracle_q8(l, o, c, s, n, r, p),
+               "q9": oracle_q9(l, o, s, ps, n, p),
                "full_outer": oracle_full_outer(o, c, kept),
                "headline": oracle_headline(HEADLINE_ROWS)}
     oracle_s = time.perf_counter() - t0
@@ -2721,29 +3219,44 @@ def main_path(sf: float, device) -> tuple:
         native.reset_counts()
         for name in MAIN_QUERIES:
             start = len(calls)
-            lines.append(run_query(name, tables, session.scan_cache,
-                                   oracles[name], rows_of[name], device))
-            k = lines[-1]["launches_cold_run"].get("cross_expand", 0)
+            t0 = time.perf_counter()
+            line = run_query(name, tables, session.scan_cache,
+                             oracles[name], rows_of[name], device)
+            line["phase_s"] = time.perf_counter() - t0
+            emit(line)
+            lines.append(line)
+            k = line["launches_cold_run"].get("cross_expand", 0)
             if k:
                 k15_shapes[name] = calls[start:start + k]
         before = native.counts()
-        lines.append(string_exprs(tables, data))
-        lines[-1]["launches"] = {k: v - before[k]
-                                 for k, v in native.counts().items()
-                                 if v != before[k]}
+        t0 = time.perf_counter()
+        line = string_exprs(tables, data)
+        line["phase_s"] = time.perf_counter() - t0
+        line["launches"] = {k: v - before[k]
+                            for k, v in native.counts().items()
+                            if v != before[k]}
+        emit(line)
+        lines.append(line)
         missing = [k for k in PATH_KERNELS["string_exprs"]
-                   if lines[-1]["launches"].get(k, 0) <= 0]
+                   if line["launches"].get(k, 0) <= 0]
         if missing:
             raise AssertionError(f"string_exprs did not launch {missing}")
         launches = native.counts()
         host_passes = native.host_counts()
     peak = max(line.get("peak_device_bytes", 0) for line in lines)
-    ab = window_depth_ab(session, tables, oracles, device)
-    jf = join_form_ab(session, tables, oracles, device)
-    q11 = q11_with_rows(session, tables, data, sf)
-    of = outer_forms(session, tables, oracles, device)
-    return (lines, launches, host_passes, peak, gen_s, oracle_s,
-            (ab, jf, q11, of), k15_shapes)
+    phases = []
+    for phase in (lambda: window_depth_ab(session, tables, oracles, device),
+                  lambda: join_form_ab(session, tables, oracles, device),
+                  lambda: q11_with_rows(session, tables, data, sf),
+                  lambda: fusion_ab(session, tables, oracles, device),
+                  lambda: outer_forms(session, tables, oracles, device)):
+        t0 = time.perf_counter()
+        r = phase()
+        r["phase_s"] = time.perf_counter() - t0
+        emit(r)
+        phases.append(r)
+    return (lines, launches, host_passes, peak, gen_s, oracle_s, phases,
+            k15_shapes)
 
 
 @contextlib.contextmanager
@@ -2767,7 +3280,7 @@ def recording(module, name: str):
 # the counted run, in this order
 MAIN_QUERIES = ("q6", "q1", "q3", "q12", "q4", "q13", "q11", "q15",
                 "q22", "q2", "q17", "q5", "q10", "q14", "q18", "q19",
-                "q20", "headline")
+                "q20", "q7", "q8", "q9", "headline")
 
 
 def q13_filtered_orders(t):
@@ -2967,6 +3480,169 @@ def window_depth_ab(session, tables, oracles, device) -> dict:
                     "over them and the path kernels' launches per run"}
 
 
+FUSION_AB_QUERIES = ("q6", "q1", "q3", "q7", "headline")
+FUSION_KEYS = ("spark.rapids.tpu.sql.wholeStageFusion.enabled",
+               "spark.rapids.tpu.sql.fusion.wholeStage")
+
+
+def _device_kernels(prof):
+    """The device kernel events of a profile (copies and memsets apart):
+    (count, {name: (calls, total us)}, total us)."""
+    import torch
+    by_name, total, count = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            continue
+        us = e.time_range.end - e.time_range.start
+        calls, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, t + us)
+        total += us
+        count += 1
+    return count, by_name, total
+
+
+def update_stage_kernels(session, df) -> tuple:
+    """(device kernels, input batches) of the update stage alone: the
+    stage's input (the scan, join or exchange below its filters, projects
+    and coalescing) is made first; then the stage (those execs, on the
+    eager path, and the first non-final aggregate's update) runs over it
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.plan import physical as ph
+    from spark_rapids_tpu_torch.plan import stage_compiler as sc
+    plan = session.plan(df._analyzed())
+    agg = next(n for n in _plan_nodes(plan)
+               if isinstance(n, ph.TpuHashAggregateExec) and
+               n.mode != "final")
+    parent, node = agg, agg.children[0]
+    while isinstance(node, (ph.TpuFilterExec, ph.TpuProjectExec,
+                            ph.TpuCoalesceBatchesExec,
+                            sc.TpuWholeStageExec)):
+        parent, node = node, node.children[0]
+    parts = [list(p) for p in node.execute()]
+    parent.children[0] = _Batches(node, parts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for part in agg.children[0].execute():
+            for b in part:
+                if agg.grouping:
+                    tok, stats = agg._update_dispatch(b)
+                    agg._update_finish(tok, None, stats)
+                else:
+                    agg._update(b)
+        torch.cuda.synchronize()
+    for n in _plan_nodes(plan):
+        n.release()
+    node.release()
+    return _device_kernels(prof)[0], sum(len(p) for p in parts)
+
+
+def _Batches(node, parts):
+    """An exec handing out ``parts`` (the batches ``node`` made) in its
+    place."""
+    from spark_rapids_tpu_torch.plan import physical as ph
+
+    class Batches(ph.TpuExec):
+        @property
+        def schema(self):
+            return node.schema
+
+        @property
+        def device(self):
+            return node.device
+
+        @property
+        def output_partitions(self):
+            return len(parts)
+
+        def execute(self):
+            return [iter(p) for p in parts]
+    return Batches()
+
+
+FUSION_ORDER = ("on", "off", "off", "on")
+
+
+def fusion_ab(session, tables, oracles, device) -> dict:
+    """q6, q1, q3, q7 and the headline with fusion on (both keys at their
+    default) and off, in the order on, off, off, on: per query and pass
+    the least of 3 hot runs and their peak bytes; in each setting's first
+    pass also the update stage's device kernels per input batch
+    (torch.profiler kernel events) and one profiled hot run's device
+    busy time and top 5 device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch import queries
+    runs = {}
+    for name in FUSION_AB_QUERIES:
+        qfn = queries.QUERIES[name]
+        for setting in FUSION_ORDER:
+            for key in FUSION_KEYS:
+                session.conf.set(key, "true" if setting == "on" else "false")
+
+            def run():
+                got = qfn(tables).collect()
+                check_rows(name, sorted(got) if name == "headline" else got,
+                           oracles[name])
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            hots = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                hots.append(time.perf_counter() - t0)
+            r = runs.setdefault(f"{name}_{setting}", {
+                "hot_s": [], "hot_peak_device_bytes": []})
+            r["hot_s"].append(min(hots))
+            r["hot_peak_device_bytes"].append(
+                torch.cuda.max_memory_allocated(device))
+            if "update_kernels_per_batch" in r:
+                continue
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            count, by_name, busy = _device_kernels(prof)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+            kernels, batches = update_stage_kernels(session, qfn(tables))
+            decisions = session.last_fusion_decisions()
+            r.update({
+                "update_kernels_per_batch": kernels / max(batches, 1),
+                "update_batches": batches,
+                "profiled_run_s": wall, "device_kernels": count,
+                "device_busy_s": busy / 1e6,
+                "device_idle_share": max(0.0, 1.0 - busy / 1e6 / wall),
+                "top5_device_kernels": [
+                    {"name": k[:80], "calls": c, "ms": us / 1e3}
+                    for k, (c, us) in top],
+                "generated": [list(g) for g in decisions.generated]})
+    for key in FUSION_KEYS:
+        session.conf.set(key, "true")
+    q6_on = runs["q6_on"]["update_kernels_per_batch"]
+    if q6_on != 2:
+        raise AssertionError(f"q6's fused update stage runs {q6_on} device "
+                             f"kernels a scan batch, not 2 (K20 + K1's fold)")
+    for name in FUSION_AB_QUERIES:
+        on = runs[f"{name}_on"]["update_kernels_per_batch"]
+        off = runs[f"{name}_off"]["update_kernels_per_batch"]
+        if not on < off:
+            raise AssertionError(f"{name}: fused update stage {on} kernels "
+                                 f"a batch, eager {off}")
+    return {"phase": "fusion_ab", "order": list(FUSION_ORDER), "runs": runs,
+            "note": "hot_s: per pass the least of 3 hot runs; kernels "
+                    "counted from torch.profiler's device kernel events "
+                    "(copies and memsets apart) over the update stage's "
+                    "input batches (scan batches for q6, q1 and the "
+                    "headline, join output batches for q3 and q7); "
+                    "device_idle_share = 1 - kernel time / wall time of one "
+                    "profiled hot run"}
+
+
 REPLACES = {
     "masked_reduce": "spark_rapids_tpu/ops/aggregates.py:227",
     "sort_key_lanes": "spark_rapids_tpu/ops/kernels.py:175",
@@ -2988,6 +3664,11 @@ REPLACES = {
     "string_slice": "spark_rapids_tpu/ops/strings.py:182",
     "string_place": "spark_rapids_tpu/ops/strings.py:229",
     "find_pattern_locate": "spark_rapids_tpu/ops/strings.py:465",
+    "masked_reduce_fold": "spark_rapids_tpu/ops/aggregates.py:227",
+    "fused_stage": "spark_rapids_tpu/plan/stage_compiler.py:173, "
+                   "spark_rapids_tpu/plan/physical.py:710",
+    "fused_reduce": "spark_rapids_tpu/plan/stage_compiler.py:173, "
+                    "spark_rapids_tpu/plan/physical.py:710",
 }
 
 
@@ -3013,6 +3694,9 @@ def main() -> int:
                     help="TPC-H scale factor of the main path's lineitem")
     ap.add_argument("--seed", type=int, default=7,
                     help="seed of the generated kernel-check inputs")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernel checks (check_k19,...) to "
+                         "run alone, then stop without the result line")
     args = ap.parse_args()
 
     import torch
@@ -3030,8 +3714,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     build_s = native.build_seconds()
+    gen = main_path_kernels(device)
+    gen_build_s = native.build_generated(gen, device)
     emit({"phase": "build", "seconds": build_s, "built": list(native.SOURCES),
-          "nvcc": native.nvcc_path(), "arch": " ".join(native.ARCH_FLAGS)})
+          "nvcc": native.nvcc_path(), "arch": " ".join(native.ARCH_FLAGS),
+          # the main path's generated stage kernels (NVRTC, sm_90a,
+          # --fmad=false), compiled and loaded once here
+          "generated_kernels": len(gen), "generated_seconds": gen_build_s,
+          "nvrtc_options": list(native.NVRTC_OPTIONS)})
 
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
@@ -3039,11 +3729,24 @@ def main() -> int:
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k7, check_k7_outer, check_k8, check_k9,
                   check_k10, check_k11, check_k12, check_k13, check_k14,
-                  check_k15, check_k16, check_k17, check_k18, check_locate):
+                  check_k15, check_k16, check_k17, check_k18, check_locate,
+                  check_k19, check_k20):
+        if args.only and check.__name__ not in args.only.split(","):
+            continue
+        t0 = time.perf_counter()
         r = check(device, rng)
         torch.cuda.synchronize()
+        r["phase_s"] = time.perf_counter() - t0
+        if "fold" in r:
+            results["masked_reduce_fold"] = {
+                **r.pop("fold"), "timed_at": "q6's partials of one "
+                                             "2^20-row batch"}
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
+    if args.only:
+        emit({"phase": "only", "checks": args.only,
+              "generated": native.generated_stats()})
+        return 0
 
     for check in (check_wide_keys, check_many_partitions):
         emit(check(device, rng))
@@ -3051,15 +3754,14 @@ def main() -> int:
 
     lines, launches, host_passes, peak, gen_s, oracle_s, phases, \
         k15_shapes = main_path(args.sf, device)
-    for line in lines:
-        emit(line)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
           "launches": launches,
+          # generated kernels compiled (NVRTC) or read from the cubin
+          # cache, and the compile seconds, over the whole process
+          "generated": native.generated_stats(),
           # the general LIKE's and replace's passes (host in the reference)
           "host_string_passes": host_passes})
-    for phase in phases:
-        emit(phase)
     r = check_k15_main(device, k15_shapes)
     results["cross_expand"].update(r)
     emit({"phase": "kernel", **r})
@@ -3076,8 +3778,9 @@ def main() -> int:
 
     emit({"kernels": [{
         "name": name, "route": "cuda",
-        "source": "spark_rapids_tpu_torch/csrc/"
-                  f"{native.LIBRARY_OF.get(name, name)}.cu",
+        "source": GEN_SOURCE if name in native.GENERATED else
+        "spark_rapids_tpu_torch/csrc/"
+        f"{native.LIBRARY_OF.get(name, name)}.cu",
         "replaces": REPLACES[name], "launches": launches[name],
         **({"launched_by": PHASE_KERNELS[name],
             "phase_launches": results[name]["phase_launches"]}

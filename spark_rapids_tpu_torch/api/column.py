@@ -1,8 +1,8 @@
 """Column wrapper: the operator-overloaded expression builder (pyspark
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
-operators, ``isin``, the string predicates ``contains``, ``startswith``,
-``endswith`` and ``like``, ``substr``, and the ``when(...).otherwise(...)``
-chain."""
+operators (with ``%``, unary ``-`` and ``eqNullSafe``), ``isin``, the
+string predicates ``contains``, ``startswith``, ``endswith`` and ``like``,
+``substr``, ``cast`` and the ``when(...).otherwise(...)`` chain."""
 
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ class Col:
     def __rmul__(self, o): return Col(ar.Multiply(_unwrap(o), self.expr))
     def __truediv__(self, o): return Col(ar.Divide(self.expr, _unwrap(o)))
     def __rtruediv__(self, o): return Col(ar.Divide(_unwrap(o), self.expr))
+    def __mod__(self, o): return Col(ar.Remainder(self.expr, _unwrap(o)))
+    def __neg__(self): return Col(ar.UnaryMinus(self.expr))
 
     # comparisons
     def __eq__(self, o): return Col(pr.EqualTo(self.expr, _unwrap(o)))  # type: ignore[override]
@@ -45,6 +47,7 @@ class Col:
     def __le__(self, o): return Col(pr.LessThanOrEqual(self.expr, _unwrap(o)))
     def __gt__(self, o): return Col(pr.GreaterThan(self.expr, _unwrap(o)))
     def __ge__(self, o): return Col(pr.GreaterThanOrEqual(self.expr, _unwrap(o)))
+    def eqNullSafe(self, o): return Col(pr.EqualNullSafe(self.expr, _unwrap(o)))
 
     # boolean
     def __and__(self, o): return Col(pr.And(self.expr, _unwrap(o)))
@@ -77,6 +80,11 @@ class Col:
 
     def alias(self, name: str) -> "Col":
         return Col(ex.Alias(self.expr, name))
+
+    def cast(self, to) -> "Col":
+        from ..columnar import dtypes as dt
+        from ..ops.cast import Cast
+        return Col(Cast(self.expr, dt.of(to)))
 
     def asc(self) -> lp.SortOrder:
         return lp.SortOrder(self.expr, ascending=True)

@@ -1,11 +1,17 @@
 """pyspark.sql.functions analog: the expression constructors of the main
-path and the string functions, ported from spark_rapids_tpu/api/functions.py."""
+path, the null, math, date and string functions, ported from
+spark_rapids_tpu/api/functions.py."""
 
 from __future__ import annotations
 
 from typing import Any
 
+from ..ops import arithmetic as ar
+from ..ops import conditionals as co
+from ..ops import datetime as dtm
 from ..ops import expressions as ex
+from ..ops import math_ops as mo
+from ..ops import predicates as pr
 from ..ops import strings as st
 from ..ops.hashing import Murmur3Hash
 from ..plan import logical as lp
@@ -62,6 +68,164 @@ def last(c, ignorenulls: bool = False) -> Col:
 def hash(*cols) -> Col:  # noqa: A001 - pyspark parity
     """Spark's hash(...): Murmur3Hash of the columns, seed 42 (int32)."""
     return Col(Murmur3Hash(*[_unwrap(c) for c in cols]))
+
+
+# -- nulls -----------------------------------------------------------------
+
+def coalesce(*cols) -> Col:
+    return Col(co.Coalesce(*[_unwrap(c) for c in cols]))
+
+
+def isnull(c) -> Col:
+    return Col(pr.IsNull(_unwrap(c)))
+
+
+def isnan(c) -> Col:
+    return Col(pr.IsNaN(_unwrap(c)))
+
+
+def nvl(a, b) -> Col:
+    return Col(co.Nvl(_unwrap(a), _unwrap(b)))
+
+
+def nullif(a, b) -> Col:
+    return Col(co.NullIf(_unwrap(a), _unwrap(b)))
+
+
+def greatest(*cols) -> Col:
+    return Col(co.Greatest(*[_unwrap(c) for c in cols]))
+
+
+def least(*cols) -> Col:
+    return Col(co.Least(*[_unwrap(c) for c in cols]))
+
+
+# -- math ------------------------------------------------------------------
+
+def abs(c) -> Col:  # noqa: A001
+    return Col(ar.Abs(_unwrap(c)))
+
+
+def sqrt(c) -> Col:
+    return Col(mo.Sqrt(_unwrap(c)))
+
+
+def exp(c) -> Col:
+    return Col(mo.Exp(_unwrap(c)))
+
+
+def log(c) -> Col:
+    return Col(mo.Log(_unwrap(c)))
+
+
+def pow(l, r) -> Col:  # noqa: A001
+    return Col(mo.Pow(_unwrap(l), _unwrap(r)))
+
+
+def floor(c) -> Col:
+    return Col(mo.Floor(_unwrap(c)))
+
+
+def ceil(c) -> Col:
+    return Col(mo.Ceil(_unwrap(c)))
+
+
+def round(c, scale: int = 0) -> Col:  # noqa: A001
+    return Col(mo.Round(_unwrap(c), scale))
+
+
+def sin(c) -> Col:
+    return Col(mo.Sin(_unwrap(c)))
+
+
+def cos(c) -> Col:
+    return Col(mo.Cos(_unwrap(c)))
+
+
+def tan(c) -> Col:
+    return Col(mo.Tan(_unwrap(c)))
+
+
+def atan2(y, x) -> Col:
+    return Col(mo.Atan2(_unwrap(y), _unwrap(x)))
+
+
+def pmod(l, r) -> Col:
+    return Col(ar.Pmod(_unwrap(l), _unwrap(r)))
+
+
+# -- dates -----------------------------------------------------------------
+
+def year(c) -> Col:
+    return Col(dtm.Year(_unwrap(c)))
+
+
+def month(c) -> Col:
+    return Col(dtm.Month(_unwrap(c)))
+
+
+def dayofmonth(c) -> Col:
+    return Col(dtm.DayOfMonth(_unwrap(c)))
+
+
+def dayofweek(c) -> Col:
+    return Col(dtm.DayOfWeek(_unwrap(c)))
+
+
+def weekday(c) -> Col:
+    return Col(dtm.WeekDay(_unwrap(c)))
+
+
+def dayofyear(c) -> Col:
+    return Col(dtm.DayOfYear(_unwrap(c)))
+
+
+def quarter(c) -> Col:
+    return Col(dtm.Quarter(_unwrap(c)))
+
+
+def hour(c) -> Col:
+    return Col(dtm.Hour(_unwrap(c)))
+
+
+def minute(c) -> Col:
+    return Col(dtm.Minute(_unwrap(c)))
+
+
+def second(c) -> Col:
+    return Col(dtm.Second(_unwrap(c)))
+
+
+def date_add(c, days) -> Col:
+    return Col(dtm.DateAdd(_unwrap(c), _unwrap(days)))
+
+
+def date_sub(c, days) -> Col:
+    return Col(dtm.DateSub(_unwrap(c), _unwrap(days)))
+
+
+def datediff(end, start) -> Col:
+    return Col(dtm.DateDiff(_unwrap(end), _unwrap(start)))
+
+
+def add_months(c, months) -> Col:
+    return Col(dtm.AddMonths(_unwrap(c), _unwrap(months)))
+
+
+def last_day(c) -> Col:
+    return Col(dtm.LastDay(_unwrap(c)))
+
+
+def unix_timestamp(c) -> Col:
+    return Col(dtm.UnixTimestamp(_unwrap(c)))
+
+
+def from_unixtime(c) -> Col:
+    return Col(dtm.FromUnixTime(_unwrap(c)))
+
+
+def to_date(c) -> Col:
+    return Col(dtm.ToDate(_unwrap(c)))
 
 
 # -- strings ---------------------------------------------------------------

@@ -73,6 +73,7 @@ class TpuSession:
         self.device = resolve_device(self.conf.get(cfg.DEVICE))
         self.scan_cache = ph.ScanCache()
         self._last_plan: Optional[ph.TpuExec] = None
+        self._last_decisions = None
 
     # -- data --------------------------------------------------------------
     def createDataFrame(self, data, schema: SchemaLike = None) -> DataFrame:
@@ -96,8 +97,10 @@ class TpuSession:
 
     # -- execution -----------------------------------------------------------
     def plan(self, analyzed: lp.LogicalPlan) -> ph.TpuExec:
-        return Overrides(self.conf, self.device, self.scan_cache).apply(
-            analyzed)
+        planner = Overrides(self.conf, self.device, self.scan_cache)
+        node = planner.apply(analyzed)
+        self._last_decisions = planner.decisions
+        return node
 
     def _run(self, analyzed: lp.LogicalPlan) -> ColumnarBatch:
         exec_plan = self.plan(analyzed)
@@ -114,6 +117,12 @@ class TpuSession:
 
     def last_plan(self) -> Optional[ph.TpuExec]:
         return self._last_plan
+
+    def last_fusion_decisions(self):
+        """The stage compiler's record of the last plan
+        (stage_compiler.FusionDecisions): stage notes, the units given a
+        generated kernel and the ones left eager, with their reasons."""
+        return self._last_decisions
 
 
 def _nodes(node: ph.TpuExec):

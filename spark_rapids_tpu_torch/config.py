@@ -91,6 +91,27 @@ INCOMPATIBLE_OPS = ConfEntry(
     False, parse_bool)
 
 
+WHOLESTAGE_FUSION = ConfEntry(
+    "spark.rapids.tpu.sql.wholeStageFusion.enabled",
+    "MASTER fusion switch: per-operator fused stages (a project's or a "
+    "filter's expressions, an aggregate's update inputs) run as one "
+    "generated CUDA kernel per batch (plan/stage_codegen.py: K19 "
+    "fused_stage, K20 fused_reduce). Off also disables the stage-level "
+    "compiler gated by fusion.wholeStage, and every stage runs its eager "
+    "torch ops.",
+    True, parse_bool)
+
+FUSION_WHOLE_STAGE = ConfEntry(
+    "spark.rapids.tpu.sql.fusion.wholeStage",
+    "STAGE-level fusion (plan/stage_compiler.py): a chain of filters and "
+    "projects becomes one TpuWholeStageExec, and the chain directly below "
+    "an aggregate folds into its update; each runs as one generated "
+    "kernel per batch. Off, an aggregate folds a single filter only and "
+    "the per-operator fused stages stay governed by "
+    "wholeStageFusion.enabled.",
+    True, parse_bool)
+
+
 _BYTE_SUFFIXES = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20,
                   "mb": 1 << 20, "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40,
                   "tb": 1 << 40}

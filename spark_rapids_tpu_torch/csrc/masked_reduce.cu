@@ -15,6 +15,9 @@
 // shared-memory tree per block writes one partial per block to scratch.
 // Launch 2 (one block) folds the partials in block order and writes the
 // result. No atomics: the same input gives the same bits on every run.
+// Launch 2 is also an entry of its own, masked_reduce_fold: the generated
+// K20 fused_reduce (plan/stage_codegen.py) writes these same partials, on
+// this grid and tree, for every aggregate of a stage in one launch.
 #include "agg_common.cuh"
 
 namespace {
@@ -94,9 +97,35 @@ struct Launch {
   }
 };
 
+template <int OP, typename T>
+struct Fold {
+  static int run(const void* data, const void* valid, const void* parts,
+                 int nparts, void* out, void* out_valid, int out_slots,
+                 cudaStream_t stream) {
+    final_kernel<OP, T><<<1, kThreads, 0, stream>>>(
+        (const T*)data, (const uint8_t*)valid, (const Acc*)parts, nparts, out,
+        (uint8_t*)out_valid, out_slots);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
+
+// Partials (blocks of launch 1) masked_reduce uses for n rows.
+int masked_reduce_num_parts(long long n) { return num_parts(n); }
+
+// Launch 2 alone: fold nparts partials (sizeof(Acc) == 32 bytes each) into
+// slot 0 of out. data/valid are the input column, read by FIRST/LAST only.
+int masked_reduce_fold(int op, int dcode, const void* data, const void* valid,
+                       const void* parts, int nparts, void* out,
+                       void* out_valid, int out_slots, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  AGG_DISPATCH(op, dcode, Fold, data, valid, parts, nparts, out, out_valid,
+               out_slots, s)
+  return (int)cudaErrorInvalidValue;
+}
 
 // Bytes of scratch masked_reduce needs for n rows.
 long long masked_reduce_scratch_bytes(long long n) {
@@ -104,6 +133,8 @@ long long masked_reduce_scratch_bytes(long long n) {
 }
 
 // Returns 0 or the CUDA error of the launch.
+static_assert(sizeof(Acc) == 32, "the generated partials' layout");
+
 int masked_reduce(int op, int dcode, const void* data, const void* valid,
                   const void* live, long long n, int ignore_nulls,
                   void* scratch, void* out, void* out_valid, int out_slots,

@@ -1,13 +1,27 @@
-"""Build, load and count the port's hand-written CUDA kernels.
+"""Build, load and count the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface (``_build/lib<name>.so``), loaded
-with ``ctypes``. The build runs at first use from the sources in the
-checkout, one ``nvcc`` per source, all started together, and is skipped
-for a library newer than its sources. Nothing here runs at import time.
+Each hand-written ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface
+(``_build/lib<name>.so``), loaded with ``ctypes``. The build runs at first
+use from the sources in the checkout, one ``nvcc`` per source, all started
+together, and is skipped for a library newer than its sources. Nothing
+here runs at import time.
 
-The only process state is the loaded library handles, ``LAUNCHES``: one
-plain integer per kernel (K7's outer mode and K13's locate mode have their
+The generated stage kernels (plan/stage_codegen.py: K19 ``fused_stage``,
+K20 ``fused_reduce``) compile at first use with NVRTC, through ``ctypes``,
+for ``sm_90a`` with FMA contraction off (``--fmad=false``) and without
+fast math, into a cubin cached under ``_build/gen/<entry>.cubin`` (the
+entry name carries the source's hash). They load through libcuda
+(``cuModuleLoadData``) in PyTorch's primary context and launch with
+``cuLaunchKernel`` on PyTorch's current stream. NVRTC takes a fraction of
+a second per kernel where ``nvcc`` takes seconds, and a plan may hold a
+few stages: that is why it, and not ``nvcc``, builds them.
+``generated_stats()`` gives the kernels compiled, the cubins read from the
+cache and the compile seconds. A compile or launch failure raises.
+
+The only process state is the loaded libraries, modules and generated
+functions, the generated kernels' stats, ``LAUNCHES``: one plain integer
+per kernel (K7's outer mode, K13's locate mode and K1's fold have their
 own), bumped by its wrapper where it launches, so a run can show which
 kernels the main path went through; and ``HOST_STRING_PASSES``: one
 integer per string expression that the reference itself runs on the host
@@ -35,11 +49,16 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "join_expand_outer", "dense_stats", "slot_aggregate",
            "singleword_rank", "murmur3", "partition_split", "find_pattern",
            "build_matched", "cross_expand", "string_map", "string_slice",
-           "string_place", "find_pattern_locate")
+           "string_place", "find_pattern_locate", "masked_reduce_fold",
+           "fused_stage", "fused_reduce")
 LIBRARY_OF = {"join_expand_outer": "join_expand",
-              "find_pattern_locate": "find_pattern"}
+              "find_pattern_locate": "find_pattern",
+              "masked_reduce_fold": "masked_reduce"}
+# the kernels generated from plan/stage_codegen.py, built by NVRTC
+GENERATED = ("fused_stage", "fused_reduce")
 # the libraries, one csrc/<name>.cu each
-SOURCES = tuple(k for k in KERNELS if k not in LIBRARY_OF)
+SOURCES = tuple(k for k in KERNELS
+                if k not in LIBRARY_OF and k not in GENERATED)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -73,6 +92,9 @@ _SIGNATURES = {
         "masked_reduce": (_I, [_I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _I,
                                _P]),
         "masked_reduce_scratch_bytes": (_L, [_L]),
+        "masked_reduce_num_parts": (_I, [_L]),
+        "masked_reduce_fold": (_I, [_I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                    _P]),
     },
     "sort_key_lanes": {
         "sort_key_lanes": (_I, [ctypes.POINTER(KeyDesc), _I, _P, _P, _L, _I,
@@ -273,3 +295,220 @@ def build_seconds() -> float:
     for n in SOURCES:
         library(n)
     return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Generated kernels: NVRTC -> cubin -> libcuda
+# ---------------------------------------------------------------------------
+
+GEN_DIR = BUILD_DIR / "gen"
+NVRTC_OPTIONS = ("--gpu-architecture=sm_90a", "--fmad=false",
+                 "--std=c++17")
+_GEN_STATS = {"compiled": 0, "cached": 0, "seconds": 0.0}
+_GEN_FUNCS: Dict[tuple, ctypes.c_void_p] = {}
+_GEN_MODULES: List[ctypes.c_void_p] = []
+_CUDA_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvrtc() -> ctypes.CDLL:
+    lib = _CUDA_LIBS.get("nvrtc")
+    if lib is not None:
+        return lib
+    import glob
+    roots = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    found = [p for r in roots if r
+             for p in sorted(glob.glob(os.path.join(r, "lib64",
+                                                    "libnvrtc.so*")))]
+    try:
+        import nvidia.cuda_nvrtc  # noqa: F401 - PyTorch's CUDA wheels
+        base = os.path.dirname(nvidia.cuda_nvrtc.__file__)
+        found += sorted(glob.glob(os.path.join(base, "lib",
+                                               "libnvrtc.so*")))
+    except ImportError:
+        pass
+    found = [p for p in found if "builtins" not in p] + ["libnvrtc.so"]
+    errors = []
+    for path in found:
+        try:
+            lib = ctypes.CDLL(path)
+            break
+        except OSError as e:
+            errors.append(str(e))
+    else:
+        raise RuntimeError("NVRTC not found: the generated stage kernels "
+                           "cannot be built (" + "; ".join(errors) + ")")
+    _declare(lib, _NVRTC_SIGNATURES)
+    _CUDA_LIBS["nvrtc"] = lib
+    return lib
+
+
+_PSZ = ctypes.POINTER(ctypes.c_size_t)
+_NVRTC_SIGNATURES = {
+    "nvrtcCreateProgram": (_I, [_PP, ctypes.c_char_p, ctypes.c_char_p, _I,
+                                _P, _P]),
+    "nvrtcCompileProgram": (_I, [_P, _I, ctypes.POINTER(ctypes.c_char_p)]),
+    "nvrtcGetProgramLogSize": (_I, [_P, _PSZ]),
+    "nvrtcGetProgramLog": (_I, [_P, ctypes.c_char_p]),
+    "nvrtcGetCUBINSize": (_I, [_P, _PSZ]),
+    "nvrtcGetCUBIN": (_I, [_P, ctypes.c_char_p]),
+    "nvrtcDestroyProgram": (_I, [_PP]),
+    "nvrtcGetErrorString": (ctypes.c_char_p, [_I]),
+}
+_CUDA_SIGNATURES = {
+    "cuInit": (_I, [ctypes.c_uint]),
+    "cuGetErrorString": (_I, [_I, ctypes.POINTER(ctypes.c_char_p)]),
+    "cuCtxGetCurrent": (_I, [_PP]),
+    "cuDeviceGet": (_I, [_PI, _I]),
+    "cuDevicePrimaryCtxRetain": (_I, [_PP, _I]),
+    "cuCtxSetCurrent": (_I, [_P]),
+    "cuModuleLoadData": (_I, [_PP, ctypes.c_char_p]),
+    "cuModuleGetFunction": (_I, [_PP, _P, ctypes.c_char_p]),
+    "cuLaunchKernel": (_I, [_P, ctypes.c_uint, ctypes.c_uint,
+                            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+                            ctypes.c_uint, ctypes.c_uint, _P, _PP, _PP]),
+}
+
+
+def _declare(lib: ctypes.CDLL, signatures: dict) -> None:
+    for fn, (restype, argtypes) in signatures.items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+
+
+def _cuda() -> ctypes.CDLL:
+    lib = _CUDA_LIBS.get("cuda")
+    if lib is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        _declare(lib, _CUDA_SIGNATURES)
+        _cu(lib, lib.cuInit(0), "cuInit")
+        _CUDA_LIBS["cuda"] = lib
+    return lib
+
+
+def _cu(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = ctypes.c_char_p()
+        lib.cuGetErrorString(rc, ctypes.byref(msg))
+        raise RuntimeError(f"{what} failed: CUresult {rc} "
+                           f"({(msg.value or b'').decode()})")
+
+
+def _rtc(lib, rc: int, what: str, prog=None) -> None:
+    if rc != 0:
+        log = ""
+        if prog is not None:
+            size = ctypes.c_size_t()
+            lib.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
+            buf = ctypes.create_string_buffer(size.value + 1)
+            lib.nvrtcGetProgramLog(prog, buf)
+            log = buf.value.decode(errors="replace")
+        raise RuntimeError(f"{what} failed: "
+                           f"{lib.nvrtcGetErrorString(rc).decode()}\n{log}")
+
+
+def compile_generated(source: str, entry: str) -> bytes:
+    """The sm_90a cubin of a generated kernel: from the cache, or compiled
+    by NVRTC and cached."""
+    path = GEN_DIR / f"{entry}.cubin"
+    if path.exists():
+        _GEN_STATS["cached"] += 1
+        return path.read_bytes()
+    lib = _nvrtc()
+    t0 = time.perf_counter()
+    prog = ctypes.c_void_p()
+    _rtc(lib, lib.nvrtcCreateProgram(ctypes.byref(prog), source.encode(),
+                                     f"{entry}.cu".encode(), 0, None, None),
+         "nvrtcCreateProgram")
+    try:
+        opts = (ctypes.c_char_p * len(NVRTC_OPTIONS))(
+            *[o.encode() for o in NVRTC_OPTIONS])
+        _rtc(lib, lib.nvrtcCompileProgram(prog, len(NVRTC_OPTIONS), opts),
+             f"NVRTC compile of {entry}", prog)
+        size = ctypes.c_size_t()
+        _rtc(lib, lib.nvrtcGetCUBINSize(prog, ctypes.byref(size)),
+             "nvrtcGetCUBINSize", prog)
+        buf = ctypes.create_string_buffer(size.value)
+        _rtc(lib, lib.nvrtcGetCUBIN(prog, buf), "nvrtcGetCUBIN", prog)
+        cubin = buf.raw
+    finally:
+        lib.nvrtcDestroyProgram(ctypes.byref(prog))
+    _GEN_STATS["compiled"] += 1
+    _GEN_STATS["seconds"] += time.perf_counter() - t0
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = GEN_DIR / f"{entry}.cubin.tmp{os.getpid()}"
+    tmp.write_bytes(cubin)
+    os.replace(tmp, path)
+    return cubin
+
+
+def _device_index(device) -> int:
+    import torch
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def generated_kernel(source: str, entry: str, device) -> ctypes.c_void_p:
+    """The loaded function of a generated kernel on ``device``."""
+    key = (entry, _device_index(device))
+    fn = _GEN_FUNCS.get(key)
+    if fn is not None:
+        return fn
+    import torch
+    torch.cuda.init()
+    cubin = compile_generated(source, entry)
+    cuda = _cuda()
+    _current_context(cuda, key[1])
+    module = ctypes.c_void_p()
+    _cu(cuda, cuda.cuModuleLoadData(ctypes.byref(module), cubin),
+        f"cuModuleLoadData({entry})")
+    _GEN_MODULES.append(module)
+    fn = ctypes.c_void_p()
+    _cu(cuda, cuda.cuModuleGetFunction(ctypes.byref(fn), module,
+                                       entry.encode()),
+        f"cuModuleGetFunction({entry})")
+    _GEN_FUNCS[key] = fn
+    return fn
+
+
+def _current_context(cuda, index: int) -> None:
+    """PyTorch's primary context of the device, current on this thread."""
+    ctx = ctypes.c_void_p()
+    _cu(cuda, cuda.cuCtxGetCurrent(ctypes.byref(ctx)), "cuCtxGetCurrent")
+    if ctx.value:
+        return
+    dev = ctypes.c_int()
+    _cu(cuda, cuda.cuDeviceGet(ctypes.byref(dev), index), "cuDeviceGet")
+    _cu(cuda, cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+        "cuDevicePrimaryCtxRetain")
+    _cu(cuda, cuda.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+
+
+def launch_generated(fn: ctypes.c_void_p, blocks: int, threads: int,
+                     args: ctypes.Array, device) -> None:
+    """One launch of a generated kernel whose only parameter is the packed
+    argument block ``args``, on PyTorch's current stream."""
+    cuda = _cuda()
+    _current_context(cuda, _device_index(device))
+    params = (ctypes.c_void_p * 1)(ctypes.addressof(args))
+    rc = cuda.cuLaunchKernel(fn, blocks, 1, 1, threads, 1, 1, 0,
+                             stream_ptr(device), params, None)
+    _cu(cuda, rc, "cuLaunchKernel")
+
+
+def build_generated(kernels, device) -> float:
+    """Compile (dropping any cached cubin) and load every generated
+    kernel of ``kernels`` (plan/stage_codegen.StageKernel objects): the
+    seconds of a whole build."""
+    t0 = time.perf_counter()
+    for k in kernels:
+        (GEN_DIR / f"{k.entry}.cubin").unlink(missing_ok=True)
+        _GEN_FUNCS.pop((k.entry, _device_index(device)), None)
+        generated_kernel(k.source, k.entry, device)
+    return time.perf_counter() - t0
+
+
+def generated_stats() -> Dict[str, float]:
+    """Generated kernels compiled by NVRTC, read from the cubin cache,
+    and the compile seconds, since the process started."""
+    return dict(_GEN_STATS)

@@ -203,6 +203,40 @@ def masked_reduce(spec: AggSpec, live: torch.Tensor,
     return Column(out_t, out, out_valid)
 
 
+def masked_reduce_parts(n: int) -> int:
+    """Blocks of K1's launch 1 over ``n`` rows: the partials its fold takes
+    (the generated K20 writes as many)."""
+    return int(native.library("masked_reduce").masked_reduce_num_parts(n))
+
+
+def masked_reduce_fold(op: str, dcode: int, in_dtype: Optional[dt.DType],
+                       parts: torch.Tensor, nparts: int,
+                       data: Optional[torch.Tensor],
+                       valid: Optional[torch.Tensor], out_slots: int,
+                       device) -> Column:
+    """K1's launch 2 alone: ``nparts`` partials (32 bytes each, written by
+    the generated K20) into slot 0 of an ``out_slots``-slot column, as
+    masked_reduce writes it. ``data``/``valid``: the input column, read by
+    FIRST/LAST only."""
+    if device.type != "cuda":
+        raise RuntimeError(f"masked_reduce_fold: unsupported device {device}")
+    if parts.numel() < nparts * 32:
+        raise ValueError("masked_reduce_fold: too few partials")
+    out_t = result_dtype(op, in_dtype)
+    out = torch.empty(out_slots, dtype=storage_dtype(out_t), device=device)
+    out_valid = torch.empty(out_slots, dtype=torch.bool, device=device)
+    lib = native.library("masked_reduce")
+    ptr = parts.data_ptr()
+    rc = lib.masked_reduce_fold(
+        _OPS[op], dcode, data.data_ptr() if data is not None else ptr,
+        valid.data_ptr() if valid is not None else ptr, ptr, nparts,
+        out.data_ptr(), out_valid.data_ptr(), out_slots,
+        native.stream_ptr(device))
+    native.check(rc, "masked_reduce_fold")
+    native.bump("masked_reduce_fold")
+    return Column(out_t, out, out_valid)
+
+
 def _one_slot(value: torch.Tensor, valid: torch.Tensor, out_t: dt.DType,
               out_slots: int) -> Column:
     device = value.device

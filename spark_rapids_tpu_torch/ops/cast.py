@@ -34,6 +34,13 @@ class Cast(Expression):
         self.to = to
 
     @property
+    def fusable(self) -> bool:  # type: ignore[override]
+        """The reference's _is_device_castable: casts from or to STRING
+        stay out of fused stages."""
+        src = self.children[0].dtype
+        return src == self.to or dt.STRING not in (src, self.to)
+
+    @property
     def dtype(self) -> dt.DType:
         return self.to
 
@@ -73,7 +80,11 @@ def device_cast(data: torch.Tensor, src: dt.DType, dst: dt.DType
     if src.is_integral and dst == dt.TIMESTAMP:
         return data.to(torch.int64) * MICROS_PER_SECOND
     if src == dt.TIMESTAMP and dst.is_floating:
-        return data.to(torch.float64) / MICROS_PER_SECOND
+        # a device divisor: CUDA's division by a Python scalar multiplies
+        # by its reciprocal, not the correctly rounded quotient
+        return data.to(torch.float64) / torch.full(
+            (), float(MICROS_PER_SECOND), dtype=torch.float64,
+            device=data.device)
     if src.is_floating and dst == dt.TIMESTAMP:
         return (data * MICROS_PER_SECOND).to(torch.int64)
     if src.is_floating and dst.is_integral:

@@ -1,8 +1,8 @@
-"""Conditional expressions: the port of If and CaseWhen from
-spark_rapids_tpu/ops/conditionals.py.
+"""Conditional expressions: the port of spark_rapids_tpu/ops/conditionals.py
+(If, CaseWhen, Coalesce, Nvl, NullIf, Greatest, Least).
 
-Both branches are evaluated over the whole batch and selected by mask, as
-in the reference. Coalesce, NullIf, Greatest and Least are not ported yet.
+Every branch is evaluated over the whole batch and selected by mask, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
 from ..columnar.column import Column, Scalar
-from .expressions import Expression, materialize
+from .expressions import Expression, data_validity, materialize
 
 
 def _select(mask: torch.Tensor, a: Column, b: Column, dtype: dt.DType,
@@ -93,3 +93,106 @@ class CaseWhen(Expression):
             mask = _bool_mask(cond, cap, batch.device)
             result = _select(mask, val, result, self.dtype, cap)
         return result
+
+
+class Coalesce(Expression):
+    """GpuCoalesce: the first non-NULL argument."""
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    @property
+    def nullable(self) -> bool:
+        return all(c.nullable for c in self.children)
+
+    def eval(self, batch: ColumnarBatch):
+        cap = batch.capacity
+        result = Column.full_null(self.dtype, cap, batch.device)
+        decided = torch.zeros(cap, dtype=torch.bool, device=batch.device)
+        for child in self.children:
+            v = materialize(child.eval(batch), batch)
+            take = (~decided) & v.validity
+            result = _select(take, v, result, self.dtype, cap)
+            decided = decided | v.validity
+        return result
+
+
+class Nvl(Coalesce):
+    """ifnull/nvl: two-argument coalesce."""
+
+
+class NullIf(Expression):
+    """nullif(a, b): NULL where a = b (Spark's NaN equality), else a."""
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    def eval(self, batch: ColumnarBatch):
+        from .predicates import float_eq
+        from .strings_util import string_equal
+        cap, device = batch.capacity, batch.device
+        a = materialize(self.children[0].eval(batch), batch)
+        bv = self.children[1].eval(batch)
+        if isinstance(bv, Column):
+            bvalid = bv.validity
+        else:
+            bvalid = torch.full((cap,), not bv.is_null, dtype=torch.bool,
+                                device=device)
+        if self.dtype == dt.STRING:
+            eq = string_equal(a, bv, cap, device)
+        else:
+            bd, _ = data_validity(bv, self.dtype, device)
+            eq = float_eq(a.data, bd) if self.dtype.is_floating \
+                else (a.data == bd)
+        eq_mask = eq.expand(cap) & bvalid & a.validity
+        validity = a.validity & ~eq_mask
+        if self.dtype == dt.STRING:
+            return Column(self.dtype, a.data, validity, a.lengths)
+        return Column(self.dtype, torch.where(
+            validity, a.data, torch.zeros((), dtype=a.data.dtype,
+                                          device=device)), validity)
+
+
+class _MinMaxN(Expression):
+    """Least/Greatest: NULLs skipped, NULL only when every input is; NaN
+    is the largest value (Spark's ordering)."""
+
+    _take_greater: bool
+
+    @property
+    def dtype(self) -> dt.DType:
+        return self.children[0].dtype
+
+    @property
+    def nullable(self) -> bool:
+        return all(c.nullable for c in self.children)
+
+    def eval(self, batch: ColumnarBatch):
+        from .predicates import float_lt
+        from .strings_util import string_compare
+        cap = batch.capacity
+        result = Column.full_null(self.dtype, cap, batch.device)
+        for child in self.children:
+            v = materialize(child.eval(batch), batch)
+            if self.dtype == dt.STRING:
+                cmp = string_compare(v, result, cap, batch.device)
+                better = cmp > 0 if self._take_greater else cmp < 0
+            elif self.dtype.is_floating:
+                better = float_lt(result.data, v.data) \
+                    if self._take_greater else float_lt(v.data, result.data)
+            else:
+                better = v.data > result.data if self._take_greater \
+                    else v.data < result.data
+            take = v.validity & (~result.validity | better)
+            result = _select(take, v, result, self.dtype, cap)
+        return result
+
+
+class Greatest(_MinMaxN):
+    _take_greater = True
+
+
+class Least(_MinMaxN):
+    _take_greater = False

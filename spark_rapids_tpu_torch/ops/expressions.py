@@ -2,8 +2,10 @@
 
 ``eval(batch)`` returns a :class:`Column` or a :class:`Scalar`, as in the
 reference (expressions.py:37). Evaluation is eager: one torch op per node
-on the batch's device. Fusing a chain into one kernel (the reference's
-whole-stage programs, B10) is not ported yet.
+on the batch's device. A stage's expressions also compile into one
+generated kernel (plan/stage_codegen.py); ``fusable`` and
+``side_effect_free`` are the reference's flags that decide, at plan time,
+which operators may join a fused stage.
 """
 
 from __future__ import annotations
@@ -22,7 +24,12 @@ ColumnOrScalar = Union[Column, Scalar]
 
 class Expression:
     """Base expression. Subclasses set ``children`` and implement
-    ``dtype``/``eval``."""
+    ``dtype``/``eval``. ``fusable``: may join a fused stage (the
+    reference's flag; a string cast or a host string expression is not);
+    ``side_effect_free``: False for expressions with per-batch state."""
+
+    fusable = True
+    side_effect_free = True
 
     def __init__(self, *children: "Expression"):
         self.children: List[Expression] = list(children)
@@ -70,6 +77,9 @@ class Expression:
         for c in self.children:
             out.extend(c.collect(pred))
         return out
+
+    def tree_fusable(self) -> bool:
+        return self.fusable and all(c.tree_fusable() for c in self.children)
 
     def __repr__(self):
         args = ", ".join(repr(c) for c in self.children)

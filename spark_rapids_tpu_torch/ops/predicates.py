@@ -1,5 +1,5 @@
 """Predicate expressions: the port of spark_rapids_tpu/ops/predicates.py
-(comparisons, AND/OR/NOT, IS [NOT] NULL, IN).
+(comparisons, ``<=>``, AND/OR/NOT, IS [NOT] NULL, ISNAN, IN).
 
 Spark semantics: comparisons are NULL if either side is NULL; AND/OR are
 Kleene three-valued; NaN = NaN is TRUE and NaN is greater than every other
@@ -185,6 +185,40 @@ class GreaterThanOrEqual(BinaryComparison):
         return float_lt(r, l) | float_eq(l, r)
 
 
+class EqualNullSafe(Expression):
+    """``<=>``: never NULL; NULL <=> NULL is TRUE (GpuEqualNullSafe).
+    Padding rows read FALSE with valid = the row mask."""
+    symbol = "<=>"
+
+    @property
+    def dtype(self):
+        return dt.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, batch: ColumnarBatch):
+        lv = self.children[0].eval(batch)
+        rv = self.children[1].eval(batch)
+        in_dtype = self.children[0].dtype
+        cap, device = batch.capacity, batch.device
+        if in_dtype == dt.STRING:
+            eq = string_equal(lv, rv, cap, device, _literal_cache(self))
+        else:
+            ld, _ = data_validity(lv, in_dtype, device)
+            rd, _ = data_validity(rv, in_dtype, device)
+            eq = float_eq(ld, rd) if in_dtype.is_floating else (ld == rd)
+        lval = torch.as_tensor(_str_validity(lv), device=device).expand(cap)
+        rval = torch.as_tensor(_str_validity(rv), device=device).expand(cap)
+        data = torch.where(lval & rval, eq.expand(cap), lval == rval)
+        live = batch.row_mask_raw()
+        return result_column(dt.BOOL, data & live, live, cap)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} <=> {self.children[1]!r})"
+
+
 def _str_validity(v):
     """Validity of a string operand: a tensor, or a python bool for a
     scalar (True = always valid)."""
@@ -285,6 +319,27 @@ class IsNotNull(Expression):
         live = batch.row_mask_raw()
         return result_column(dt.BOOL, v.validity & live, live,
                              batch.capacity)
+
+
+class IsNaN(Expression):
+    """GpuIsNan: FALSE for NULL, never NULL on live rows."""
+
+    @property
+    def dtype(self):
+        return dt.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, batch: ColumnarBatch):
+        v = self.children[0].eval(batch)
+        if isinstance(v, Scalar):
+            return Scalar(bool(v.value is not None and
+                               math.isnan(v.value)), dt.BOOL)
+        live = batch.row_mask_raw()
+        return result_column(dt.BOOL, torch.isnan(v.data) & v.validity,
+                             live, batch.capacity)
 
 
 class In(Expression):

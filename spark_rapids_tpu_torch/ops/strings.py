@@ -738,6 +738,12 @@ class Like(Expression):
     def dtype(self):
         return dt.BOOL
 
+    @property
+    def fusable(self):  # type: ignore[override]
+        """The reference's flag (strings.py:359): only the device fast
+        paths may join a fused stage."""
+        return self._fast_path() is not None
+
     def _fast_path(self):
         p = self.pattern
         if self.escape in p or "_" in p:
@@ -854,6 +860,8 @@ class StringReplace(Expression):
     """GpuStringReplace: replace(str, search, replace) with literal search
     and replacement. The reference runs it on the host (the widths
     change); so does the port."""
+
+    fusable = False   # the reference's flag (strings.py:497)
 
     def __init__(self, child: Expression, search: str, replacement: str):
         super().__init__(child)

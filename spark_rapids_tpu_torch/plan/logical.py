@@ -18,6 +18,7 @@ from ..columnar.column import Column, utf8_lengths
 from ..ops import arithmetic as ar
 from ..ops import conditionals as co
 from ..ops import expressions as ex
+from ..ops import math_ops as mo
 from ..ops import predicates as pr
 from ..ops.cast import Cast
 
@@ -346,7 +347,8 @@ def _coerce(e: ex.Expression) -> ex.Expression:
     """Insert implicit casts for numeric binary ops and comparisons."""
 
     def fn(node):
-        if isinstance(node, (ar.BinaryArithmetic, pr.BinaryComparison)):
+        if isinstance(node, (ar.BinaryArithmetic, pr.BinaryComparison,
+                             pr.EqualNullSafe)):
             l, r = node.children
             lt, rt = l.dtype, r.dtype
             if lt == rt:
@@ -375,11 +377,17 @@ def _coerce(e: ex.Expression) -> ex.Expression:
                 nr = r if rt == target else Cast(r, target)
                 return node.with_children([nl, nr])
             raise AnalysisError(f"cannot coerce {lt} vs {rt} in {node!r}")
+        if isinstance(node, mo.UnaryMath):
+            c = node.children[0]
+            if c.dtype != dt.FLOAT64:
+                return node.with_children([Cast(c, dt.FLOAT64)])
+            return None
         if isinstance(node, AggregateExpression) and node.children:
             c = node.children[0]
             if node.op in ("sum", "avg") and c.dtype == dt.BOOL:
                 return node.with_children([Cast(c, dt.INT32)])
-        if isinstance(node, (co.If, co.CaseWhen)):
+        if isinstance(node, (co.If, co.CaseWhen, co.Coalesce, co.Least,
+                             co.Greatest)):
             return _coerce_branches(node)
         return None
 
@@ -387,10 +395,13 @@ def _coerce(e: ex.Expression) -> ex.Expression:
 
 
 def _coerce_branches(node):
-    """Cast the value branches of If/CaseWhen to one result type."""
+    """Cast the value branches of If/CaseWhen (every argument of
+    Coalesce, Least and Greatest) to one result type."""
     n = len(node.children)
     if isinstance(node, co.If):
         positions = [1, 2]
+    elif not isinstance(node, co.CaseWhen):
+        positions = list(range(n))
     else:
         positions = [2 * i + 1 for i in range(node.num_branches)]
         if node.has_else:

@@ -1,15 +1,19 @@
 """Planner: the port of the main-path rules of spark_rapids_tpu/plan/overrides.py.
 
 Converts an analyzed logical plan into execs: scan, filter, project,
-aggregate (with the filter/project chain below it folded in; partial ->
-hash exchange -> final above more than one partition), equi-join (inner,
+aggregate (with the filter/project chain below it folded in, a single
+filter with stage fusion off; partial -> hash exchange -> final above
+more than one partition), equi-join (inner,
 left, right, full, left semi, left anti; broadcast at or under
 ``autoBroadcastJoinThreshold``, else both sides hash-exchanged into a
 shuffled join; a right join is a left join with the sides swapped under
 a column reorder), cross join (also a join with no equality key), sort (a
 range exchange and local sorts above more than one partition), limit and
-repartition, then inserts the batch-coalescing transitions. These are the
-reference's plans without adaptive execution and without a device mesh.
+repartition, then collapses the remaining filter/project chains into
+whole stages (plan/stage_compiler.py), inserts the batch-coalescing
+transitions and attaches each fused unit's generated kernel. These are
+the reference's plans without adaptive execution and without a device
+mesh.
 The port has no CPU engine yet, so anything else raises
 NotImplementedError naming the operator: nothing runs on the host in its
 place. So does an ``incompat`` expression (Upper, Lower, InitCap: ASCII-only
@@ -55,10 +59,19 @@ class Overrides:
         return int(self.conf.get(cfg.SHUFFLE_PIPELINE_DEPTH))
 
     def apply(self, plan: lp.LogicalPlan) -> ph.TpuExec:
+        """The plan of ``plan``; ``self.decisions`` records the stage
+        compiler's decisions."""
         self._check_incompat(plan)
         plan = _prune_scan_columns(plan)
+        self.decisions = sc.FusionDecisions()
         node = self._convert(plan)
-        return self._insert_coalesce(node)
+        # stages collapse before coalesce insertion, so batch coalescing
+        # lands below a fused stage, on the raw scan stream (the reference)
+        if sc.fusion_enabled(self.conf):
+            node = sc.fuse_stages(node, self.decisions)
+        node = self._insert_coalesce(node)
+        sc.generate_kernels(node, self.conf, self.decisions)
+        return node
 
     def _check_incompat(self, p: lp.LogicalPlan) -> None:
         """The reference's incompat rule (plan/overrides.py:104-106,
@@ -117,18 +130,35 @@ class Overrides:
             raise NotImplementedError(
                 "DISTINCT aggregates are not ported to the PyTorch engine "
                 "yet")
-        child, pre_stage = sc.peel_for_aggregate(child)
+        # the fusable chain below folds into the update (stage fusion on);
+        # with it off, the reference folds a single filter only
+        members = []
+        if sc.fusion_enabled(self.conf):
+            child, pre_stage, members = sc.peel_for_aggregate(
+                child, self.decisions)
+        else:
+            child, pre_stage = sc.fold_single_filter(child)
         kw = dict(allow_matmul=cfg.matmul_agg_enabled(self.conf, self.device),
                   pipeline_depth=int(self.conf.get(cfg.AGG_PIPELINE_DEPTH)))
+
+        def mark(agg: ph.TpuHashAggregateExec) -> ph.TpuHashAggregateExec:
+            if members:
+                agg._fusion_stage = self.decisions.next_stage_id()
+                agg._fusion_members = list(members)
+                self.decisions.note(
+                    f"stage #{agg._fusion_stage}: {'+'.join(members)} "
+                    f"folded into TpuHashAggregateExec[{agg.mode}]")
+            return agg
+
         if child.output_partitions <= 1:
-            return ph.TpuHashAggregateExec(
+            return mark(ph.TpuHashAggregateExec(
                 child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
-                **kw)
+                **kw))
         # partial (update) -> exchange on the keys -> final (merge) per
         # exchange partition; a global aggregate meets on one partition
-        partial = ph.TpuHashAggregateExec(
+        partial = mark(ph.TpuHashAggregateExec(
             child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
-            mode="partial", **kw)
+            mode="partial", **kw))
         if p.grouping:
             keys = [ex.ColumnRef(f"_k{i}") for i in range(len(p.grouping))]
             exch = TpuHashExchangeExec(partial, self.shuffle_partitions, keys,

@@ -9,7 +9,12 @@ modes: ``complete`` (one node sees every row of its groups), ``partial``
 (per partition, below a hash exchange) and ``final`` (the merge and result
 projection, per partition above the exchange). A batch's update carries
 the folded filter/project chain as a live mask; pending partials merge in
-fan-in groups. Grouping-free input takes the reduce route (K1 per
+fan-in groups. Where the planner attached a generated kernel
+(plan/stage_compiler.generate_kernels), a CUDA batch's project, filter or
+update inputs come from one K19 ``fused_stage`` launch, and a
+grouping-free update is one K20 ``fused_reduce`` launch plus K1's fold
+per aggregate; on the CPU the same units run their eager torch ops.
+Grouping-free input takes the reduce route (K1 per
 aggregate); grouped input goes through ops/aggregates.groupby_aggregate_fast,
 which picks the dense route (K8 stats, K9) or the sort route (K2 + stable
 sort, K3, then K4 or K9). Update batches ride a PipelineWindow: each
@@ -38,7 +43,9 @@ from ..ops import aggregates as agg_k
 from ..ops import expressions as ex
 from ..ops import joins as join_k
 from ..ops import kernels as K
+from ..ops.cast import Cast
 from . import logical as lp
+from . import stage_codegen as sg
 
 Partition = Iterator[ColumnarBatch]
 
@@ -149,7 +156,11 @@ class ScanCache:
     the puts that did not fit, ``evicted`` the column entries evicted: a
     scan served from the cache bumps none of them."""
 
-    def __init__(self, max_bytes: int = 6 << 30):
+    # 12 GiB holds every column TPC-H's main path scans at SF 10 on an
+    # 80 GB card: q7, q8 and q9 read every lineitem column (their
+    # withColumn references them all, and scans are pruned by name, as
+    # in the reference)
+    def __init__(self, max_bytes: int = 12 << 30):
         self.max_bytes = max_bytes
         self.bytes = 0
         self.uploads = 0
@@ -298,6 +309,36 @@ class TpuLocalScanExec(TpuExec):
 # Project / Filter / Coalesce
 # ---------------------------------------------------------------------------
 
+def on_card(batch: ColumnarBatch) -> bool:
+    """Whether a fused unit launches its generated kernel on ``batch``: a
+    CUDA batch does; a CPU batch runs the eager ops, the kernels' plain
+    version."""
+    return batch.device.type == "cuda"
+
+
+class FusedStage:
+    """A project's or a filter's bound expressions as one generated kernel
+    (K19, plan/stage_codegen.py): the reference's FusedStage
+    (physical.py:710). Compiled kernels are cached per process by the
+    hash of their source (native.generated_kernel), so every query with
+    the same expression shapes shares one, whatever its literals.
+    ``project``: the output columns; ``filter``: the input columns
+    compacted (K5) where the condition holds, with the count on the
+    device."""
+
+    def __init__(self, kernel: "sg.StageKernel", mode: str):
+        self.kernel = kernel
+        self.mode = mode
+
+    def __call__(self, batch: ColumnarBatch, schema: dt.Schema
+                 ) -> ColumnarBatch:
+        outs, mask = self.kernel.launch(batch)
+        if self.mode == "project":
+            return ColumnarBatch(schema, outs, batch.num_rows_raw)
+        cols, count = K.compact_columns(batch.columns, mask)
+        return ColumnarBatch(schema, cols, count)
+
+
 class TpuProjectExec(TpuExec):
     def __init__(self, child: TpuExec, exprs: List[ex.Expression]):
         super().__init__(child)
@@ -305,6 +346,7 @@ class TpuProjectExec(TpuExec):
         self._schema = dt.Schema([
             dt.Field(ex.output_name(e, i), e.dtype, e.nullable)
             for i, e in enumerate(exprs)])
+        self.kernel: Optional[sg.StageKernel] = None   # planner-attached
 
     @property
     def schema(self):
@@ -314,7 +356,12 @@ class TpuProjectExec(TpuExec):
         return [self._map(p) for p in self.children[0].execute()]
 
     def _map(self, part: Partition) -> Partition:
+        fused = FusedStage(self.kernel, "project") \
+            if self.kernel is not None else None
         for batch in part:
+            if fused is not None and on_card(batch):
+                yield fused(batch, self._schema)
+                continue
             cols = [ex.materialize(e.eval(batch), batch) for e in self.exprs]
             yield ColumnarBatch(self._schema, cols, batch.num_rows_raw)
 
@@ -339,6 +386,7 @@ class TpuFilterExec(TpuExec):
         super().__init__(child)
         self.condition = bind_refs(condition, child.schema)
         self._schema = child.schema
+        self.kernel: Optional[sg.StageKernel] = None   # planner-attached
 
     @property
     def schema(self):
@@ -348,7 +396,12 @@ class TpuFilterExec(TpuExec):
         return [self._map(p) for p in self.children[0].execute()]
 
     def _map(self, part: Partition) -> Partition:
+        fused = FusedStage(self.kernel, "filter") \
+            if self.kernel is not None else None
         for batch in part:
+            if fused is not None and on_card(batch):
+                yield fused(batch, self._schema)
+                continue
             out = filter_batch(self.condition, batch)
             if out is not None:
                 yield out
@@ -421,6 +474,9 @@ class TpuHashAggregateExec(TpuExec):
         self._dense_state: Dict[str, bool] = {}
         self.window: Optional[PipelineWindow] = None   # the last stream's
         self.pre_stage = pre_stage
+        # the update's generated kernel (K19 prologue or K20), attached by
+        # the planner (stage_compiler.generate_kernels)
+        self.kernel: Optional[sg.StageKernel] = None
         self.grouping_src = grouping
         self.aggregate_exprs = aggregate_exprs
         self.leaves: List[lp.AggregateExpression] = []
@@ -550,12 +606,61 @@ class TpuHashAggregateExec(TpuExec):
         yield final_in if self.mode == "partial" else self._final(final_in)
 
     # -- update (per input batch) -----------------------------------------
-    def _build_update_specs(self, batch: ColumnarBatch):
+    def update_unit(self):
+        """The update as a fused unit over the child's schema: (label,
+        mode, in_schema, filters, outputs, specs) for the generator. A
+        grouped update's outputs are its keys, then each leaf's input (the
+        K19 prologue); a grouping-free update's specs are K20's."""
+        in_schema = self.children[0].schema
+        filters, cur = sg.inline_chain(self.pre_stage, in_schema)
+        stage = getattr(self, "_fusion_stage", None)
+        label = f"stage #{stage}" if stage is not None else "update"
+        inputs = [None if b is None else sg.Materialize(sg.inline(b, cur))
+                  for b in self.bound_leaf_inputs]
+        if self.grouping:
+            # one output per distinct column: leaves (and keys) that read
+            # the same chain column share it, as they share it eagerly
+            outputs, slot = [], {}
+
+            def slot_of(e):
+                k = id(e.children[0])
+                if k not in slot:
+                    slot[k] = len(outputs)
+                    outputs.append(e)
+                return slot[k]
+            keys = [slot_of(sg.Materialize(sg.inline(g, cur)))
+                    for g in self.grouping]
+            leaves = [None if e is None else slot_of(e) for e in inputs]
+            self._prologue_slots = (keys, leaves)
+            return (label, "stage", in_schema, filters, outputs, ())
+        specs = []
+        for leaf, e in zip(self.leaves, inputs):
+            for op, _t in self._update_cols(leaf):
+                if leaf.op == "avg" and op == "sum" and \
+                        e.dtype != dt.FLOAT64:
+                    specs.append((op, Cast(e, dt.FLOAT64), True))
+                else:
+                    specs.append((op, e, leaf.ignore_nulls))
+        return (label, "reduce", in_schema, filters, [], specs)
+
+    def eager_update_inputs(self, batch: ColumnarBatch):
+        """(keys, each leaf's input column or None, live mask or None):
+        the folded chain and the update's inputs by the eager torch ops,
+        the plain version of the generated prologue."""
+        mask = None
+        if self.pre_stage is not None:
+            batch, mask = self.pre_stage.eval(batch)
         keys = [ex.materialize(g.eval(batch), batch) for g in self.grouping]
-        specs: List[agg_k.AggSpec] = []
-        for leaf, bound in zip(self.leaves, self.bound_leaf_inputs):
-            col = ex.materialize(bound.eval(batch), batch) \
+        cols = [ex.materialize(bound.eval(batch), batch)
                 if bound is not None else None
+                for bound in self.bound_leaf_inputs]
+        return keys, cols, mask
+
+    def _specs_of(self, cols: List[Optional[Column]]
+                  ) -> List[agg_k.AggSpec]:
+        """The update's AggSpecs over each leaf's input column."""
+        specs: List[agg_k.AggSpec] = []
+        for leaf, col in zip(self.leaves, cols):
             for op, _t in self._update_cols(leaf):
                 if leaf.op == "avg" and op == "sum" and \
                         col.dtype != dt.FLOAT64:
@@ -565,16 +670,26 @@ class TpuHashAggregateExec(TpuExec):
                 else:
                     specs.append(agg_k.AggSpec(
                         op, col, ignore_nulls=leaf.ignore_nulls))
-        return keys, specs
+        return specs
 
     def _pre_stage(self, batch: ColumnarBatch):
-        mask = None
-        if self.pre_stage is not None:
-            batch, mask = self.pre_stage.eval(batch)
-        keys, specs = self._build_update_specs(batch)
-        return batch, keys, specs, mask
+        """(batch, keys, specs, live mask or None): one K19 launch for a
+        CUDA batch with a generated prologue, else the chain and the
+        inputs evaluated eagerly."""
+        if self.kernel is not None and self.kernel.mode == "stage" and \
+                on_card(batch):
+            outs, mask = self.kernel.launch(batch)
+            keys, leaves = self._prologue_slots
+            cols = [None if i is None else outs[i] for i in leaves]
+            return batch, [outs[i] for i in keys], self._specs_of(cols), mask
+        keys, cols, mask = self.eager_update_inputs(batch)
+        return batch, keys, self._specs_of(cols), mask
 
     def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+        if self.kernel is not None and self.kernel.mode == "reduce" and \
+                on_card(batch):
+            return ColumnarBatch(self._partial_schema(), self.kernel.reduce(
+                batch, agg_k.REDUCE_SLOTS), 1)
         batch, keys, specs, mask = self._pre_stage(batch)
         return self._aggregate(keys, specs, batch, mask)
 

@@ -1,5 +1,4 @@
-"""TPC-H q1, q2, q3, q4, q5, q6, q10, q11, q12, q13, q14, q15, q17, q18,
-q19, q20 and q22 on the port's DataFrame API: the same expressions as
+"""TPC-H q1 to q15, q17 to q20 and q22 on the port's DataFrame API: the same expressions as
 benchmarks/queries.py (which builds them on the JAX package's API), and
 ``headline``: the session form of the root bench.py's
 pipeline (filter -> project -> dense-range group-by) over its data
@@ -330,6 +329,90 @@ def q20(t):
             .orderBy("s_name"))
 
 
+def q7(t):
+    """Volume shipping between two nations: nation joined twice."""
+    n1 = (t["nation"].filter(col("n_name").isin("FRANCE", "GERMANY"))
+          .withColumnRenamed("n_name", "supp_nation")
+          .withColumnRenamed("n_nationkey", "supp_nationkey"))
+    n2 = (t["nation"].filter(col("n_name").isin("FRANCE", "GERMANY"))
+          .withColumnRenamed("n_name", "cust_nation")
+          .withColumnRenamed("n_nationkey", "cust_nationkey"))
+    s = t["supplier"].join(
+        n1, on=(col("s_nationkey") == col("supp_nationkey")))
+    c = t["customer"].join(
+        n2, on=(col("c_nationkey") == col("cust_nationkey")))
+    # inclusive 1995-01-01 .. 1996-12-31: 365 + 366 days -> start + 730
+    l = t["lineitem"].filter((col("l_shipdate") >= lit(_D_1995_01_01)) &
+                             (col("l_shipdate") <= lit(_D_1995_01_01 + 730)))
+    volume = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    joined = (l.join(s, on=(col("l_suppkey") == col("s_suppkey")))
+              .join(t["orders"],
+                    on=(col("l_orderkey") == col("o_orderkey")))
+              .join(c, on=(col("o_custkey") == col("c_custkey")))
+              .filter(((col("supp_nation") == lit("FRANCE")) &
+                       (col("cust_nation") == lit("GERMANY"))) |
+                      ((col("supp_nation") == lit("GERMANY")) &
+                       (col("cust_nation") == lit("FRANCE")))))
+    return (joined
+            .withColumn("l_year", F.year(col("l_shipdate")))
+            .groupBy("supp_nation", "cust_nation", "l_year")
+            .agg(F.sum(volume).alias("revenue"))
+            .orderBy("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(t):
+    """National market share: 8-way join + conditional ratio per year."""
+    r = t["region"].filter(col("r_name") == lit("AMERICA"))
+    n1 = (t["nation"].join(r, on=(col("n_regionkey") == col("r_regionkey")))
+          .withColumnRenamed("n_nationkey", "cust_nationkey"))
+    n2 = (t["nation"]
+          .withColumnRenamed("n_nationkey", "supp_nationkey")
+          .withColumnRenamed("n_name", "supp_nation"))
+    p = t["part"].filter(col("p_type") == lit("ECONOMY ANODIZED STEEL"))
+    o = t["orders"].filter((col("o_orderdate") >= lit(_D_1995_01_01)) &
+                           (col("o_orderdate") <= lit(_D_1995_01_01 + 730)))
+    volume = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    brazil = F.when(col("supp_nation") == lit("BRAZIL"),
+                    volume).otherwise(lit(0.0))
+    joined = (t["lineitem"]
+              .join(p, on=(col("l_partkey") == col("p_partkey")))
+              .join(t["supplier"],
+                    on=(col("l_suppkey") == col("s_suppkey")))
+              .join(o, on=(col("l_orderkey") == col("o_orderkey")))
+              .join(t["customer"],
+                    on=(col("o_custkey") == col("c_custkey")))
+              .join(n1, on=(col("c_nationkey") == col("cust_nationkey")))
+              .join(n2, on=(col("s_nationkey") == col("supp_nationkey"))))
+    return (joined.withColumn("o_year", F.year(col("o_orderdate")))
+            .groupBy("o_year")
+            .agg((F.sum(brazil) / F.sum(volume)).alias("mkt_share"))
+            .orderBy("o_year"))
+
+
+def q9(t):
+    """Product type profit: partsupp two-key join + per-nation/year sums
+    (p_name LIKE adapted to p_type contains, as the reference's
+    generator has no p_name)."""
+    p = t["part"].filter(col("p_type").contains("BRUSHED"))
+    amount = (col("l_extendedprice") * (lit(1.0) - col("l_discount")) -
+              col("ps_supplycost") * col("l_quantity"))
+    joined = (t["lineitem"]
+              .join(p, on=(col("l_partkey") == col("p_partkey")))
+              .join(t["supplier"],
+                    on=(col("l_suppkey") == col("s_suppkey")))
+              .join(t["partsupp"],
+                    on=[col("l_partkey") == col("ps_partkey"),
+                        col("l_suppkey") == col("ps_suppkey")])
+              .join(t["orders"],
+                    on=(col("l_orderkey") == col("o_orderkey")))
+              .join(t["nation"],
+                    on=(col("s_nationkey") == col("n_nationkey"))))
+    return (joined.withColumn("o_year", F.year(col("o_orderdate")))
+            .groupBy("n_name", "o_year")
+            .agg(F.sum(amount).alias("sum_profit"))
+            .orderBy(col("n_name").asc(), col("o_year").desc()))
+
+
 HEADLINE_KEYS = 1024
 
 
@@ -372,7 +455,7 @@ def headline(t):
 QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12, "q13": q13,
            "q11": q11, "q15": q15, "q22": q22, "q2": q2, "q17": q17,
            "q5": q5, "q10": q10, "q14": q14, "q18": q18, "q19": q19,
-           "q20": q20, "headline": headline}
+           "q20": q20, "q7": q7, "q8": q8, "q9": q9, "headline": headline}
 # the tables each query reads, its largest last
 TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q3": ("customer", "orders", "lineitem"),
@@ -389,7 +472,12 @@ TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q14": ("part", "lineitem"),
           "q18": ("customer", "orders", "lineitem"),
           "q19": ("part", "lineitem"),
-          "q20": ("nation", "supplier", "part", "partsupp", "lineitem")}
+          "q20": ("nation", "supplier", "part", "partsupp", "lineitem"),
+          "q7": ("nation", "supplier", "customer", "orders", "lineitem"),
+          "q8": ("region", "nation", "part", "supplier", "customer",
+                 "orders", "lineitem"),
+          "q9": ("nation", "part", "supplier", "partsupp", "orders",
+                 "lineitem")}
 
 
 def table_schema(columns) -> dict:

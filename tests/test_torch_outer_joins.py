@@ -12,8 +12,8 @@ stream side hashes into one partition of eight (so the others join an
 empty stream batch). The port runs each in the broadcast form and in the
 shuffled form (threshold -1); its rows equal the JAX engine's (compared as
 sorted row lists), and its plan's operator tree equals the JAX engine's
-plan of the same query in the same form (the JAX engine's whole-stage
-fusion, not ported, turned off for that comparison).
+plan of the same query in the same form (whole-stage fusion off in both
+engines for that comparison).
 """
 
 import zlib
@@ -263,6 +263,11 @@ def tables():
     return _tables()
 
 
+# whole-stage fusion off in both engines for the plan comparison
+NO_FUSION = {"spark.rapids.tpu.sql.fusion.wholeStage": "false",
+             "spark.rapids.tpu.sql.wholeStageFusion.enabled": "false"}
+
+
 @pytest.fixture(scope="module")
 def jax_rows(tables):
     """Every join of JOINS once on the JAX engine (its rows do not depend
@@ -276,15 +281,14 @@ def jax_rows(tables):
 @pytest.mark.parametrize("name", list(JOINS))
 def test_join_matches_jax_engine(tables, jax_rows, name, form):
     from spark_rapids_tpu.plan.overrides import Overrides
-    conf = FORMS[form]
+    conf = {**FORMS[form], **NO_FUSION}
     session = TpuSession.builder.config(
         {"spark.rapids.torch.device": "cpu", **conf}).getOrCreate()
     t = {k: session.createDataFrame(v) for k, v in tables.items()}
     df = _query(F, t, name)
     got = df.collect()
     assert _sorted(got) == jax_rows[name]
-    js = _jax_session(**{"spark.rapids.tpu.sql.fusion.wholeStage": "false",
-                         **conf})
+    js = _jax_session(**conf)
     jt = {k: js.createDataFrame(v) for k, v in tables.items()}
     jdf = _query(JF, jt, name)
     tree = session.last_plan().operator_tree()

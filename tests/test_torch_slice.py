@@ -176,8 +176,10 @@ def test_join_query_on_the_shuffled_plan_matches_jax_engine(
 # ---------------------------------------------------------------------------
 
 OUTER_QUERIES = ("q13", "q11", "q15")
-# the JAX engine's whole-stage fusion (not ported) off for plan comparison
-NO_FUSION = {"spark.rapids.tpu.sql.fusion.wholeStage": "false"}
+# whole-stage fusion off in both engines for the plan comparison (both
+# keys: the master key gates the stage compiler in each)
+NO_FUSION = {"spark.rapids.tpu.sql.fusion.wholeStage": "false",
+             "spark.rapids.tpu.sql.wholeStageFusion.enabled": "false"}
 
 
 @pytest.fixture(scope="module")
@@ -208,8 +210,8 @@ def test_outer_and_cross_join_query_matches_jax_engine(
     """q13 (a left outer join under a string-predicate filter), q11 and
     q15 (cross-joined scalar subqueries): rows equal to the JAX engine's,
     and the plan's operator tree equal to the JAX engine's plan in the
-    same join form."""
-    session, t = _port_tpch(tpch_outer, **conf)
+    same join form, whole-stage fusion off in both."""
+    session, t = _port_tpch(tpch_outer, **conf, **NO_FUSION)
     got = port_queries.QUERIES[query](t).collect()
     assert len(got) == len(jax_outer_rows[query]) > 0
     assert_rows_equal(got, jax_outer_rows[query])

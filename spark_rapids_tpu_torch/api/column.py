@@ -2,7 +2,8 @@
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
 operators (with ``%``, unary ``-`` and ``eqNullSafe``), ``isin``, the
 string predicates ``contains``, ``startswith``, ``endswith`` and ``like``,
-``substr``, ``cast`` and the ``when(...).otherwise(...)`` chain."""
+``substr``, ``cast``, ``over`` (window functions) and the
+``when(...).otherwise(...)`` chain."""
 
 from __future__ import annotations
 
@@ -91,6 +92,13 @@ class Col:
 
     def desc(self) -> lp.SortOrder:
         return lp.SortOrder(self.expr, ascending=False)
+
+    def over(self, spec) -> "Col":
+        """This aggregate or window function over a window spec
+        (api/window.py); select and withColumn lift the result into a
+        Window node."""
+        from ..ops.window import WindowExpression
+        return Col(WindowExpression(self.expr, spec._to_spec()))
 
     def when(self, condition, value):
         raise TypeError("use functions.when(cond, value).otherwise(...)")

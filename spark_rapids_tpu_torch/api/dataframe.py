@@ -1,7 +1,8 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn, withColumnRenamed, join, crossJoin, groupBy().agg, agg,
-orderBy, limit, repartition, coalesce, collect and collect_batch."""
+select, withColumn (both with window functions), withColumnRenamed, join,
+crossJoin, groupBy().agg, agg, orderBy, limit, repartition, coalesce,
+collect and collect_batch."""
 
 from __future__ import annotations
 
@@ -47,7 +48,27 @@ class DataFrame:
     def select(self, *cols: ColumnOrName) -> "DataFrame":
         if not cols:
             cols = tuple(self.columns)
-        return self._df(lp.Project(self._plan, [_to_expr(c) for c in cols]))
+        return self._project([_to_expr(c) for c in cols])
+
+    def _project(self, exprs: List[ex.Expression]) -> "DataFrame":
+        """A projection; its ``Col.over`` window expressions lift into a
+        Window node below it (Catalyst's ExtractWindowExpressions): each
+        becomes a generated column ``__w<i>`` of an lp.Window, and the
+        projection references it, so windows compose inside arithmetic
+        (``col("rev") * 100 / sum("rev").over(w)``)."""
+        from ..ops.window import WindowExpression
+        hoisted: List = []
+
+        def repl(e):
+            if isinstance(e, WindowExpression):
+                name = f"__w{len(hoisted)}"
+                hoisted.append((name, e))
+                return ex.ColumnRef(name)
+            return None
+
+        exprs = [e.transform_down(repl) for e in exprs]
+        child = lp.Window(self._plan, hoisted) if hoisted else self._plan
+        return self._df(lp.Project(child, exprs))
 
     def filter(self, condition: Col) -> "DataFrame":
         return self._df(lp.Filter(self._plan, _unwrap(condition)))
@@ -63,7 +84,7 @@ class DataFrame:
                 exprs.append(ex.ColumnRef(c))
         if not replaced:
             exprs.append(ex.Alias(_unwrap(col), name))
-        return self._df(lp.Project(self._plan, exprs))
+        return self._project(exprs)
 
     def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
         exprs = [ex.Alias(ex.ColumnRef(c), new) if c == old

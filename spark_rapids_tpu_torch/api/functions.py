@@ -1,6 +1,6 @@
 """pyspark.sql.functions analog: the expression constructors of the main
-path, the null, math, date and string functions, ported from
-spark_rapids_tpu/api/functions.py."""
+path, the null, math, date, string and window functions and the DISTINCT
+aggregates, ported from spark_rapids_tpu/api/functions.py."""
 
 from __future__ import annotations
 
@@ -63,6 +63,14 @@ def first(c, ignorenulls: bool = False) -> Col:
 
 def last(c, ignorenulls: bool = False) -> Col:
     return _agg("last", c, ignore_nulls=ignorenulls)
+
+
+def countDistinct(c) -> Col:
+    return _agg("count", c, distinct=True)
+
+
+def sumDistinct(c) -> Col:
+    return _agg("sum", c, distinct=True)
 
 
 def hash(*cols) -> Col:  # noqa: A001 - pyspark parity
@@ -286,3 +294,32 @@ def instr(c, substr: str) -> Col:
 
 def replace(c, search: str, replacement: str = "") -> Col:
     return Col(st.StringReplace(_unwrap(c), search, replacement))
+
+
+# -- window ----------------------------------------------------------------
+
+def row_number() -> Col:
+    from ..ops.window import RowNumber
+    return Col(RowNumber())
+
+
+def rank() -> Col:
+    from ..ops.window import Rank
+    return Col(Rank())
+
+
+def dense_rank() -> Col:
+    from ..ops.window import DenseRank
+    return Col(DenseRank())
+
+
+def lead(c, offset: int = 1, default=None) -> Col:
+    from ..ops.window import Lead
+    return Col(Lead(_unwrap(col(c) if isinstance(c, str) else c), offset,
+                    default))
+
+
+def lag(c, offset: int = 1, default=None) -> Col:
+    from ..ops.window import Lag
+    return Col(Lag(_unwrap(col(c) if isinstance(c, str) else c), offset,
+                   default))

@@ -21,8 +21,8 @@ cache and the compile seconds. A compile or launch failure raises.
 
 The only process state is the loaded libraries, modules and generated
 functions, the generated kernels' stats, ``LAUNCHES``: one plain integer
-per kernel (K7's outer mode, K13's locate mode and K1's fold have their
-own), bumped by its wrapper where it launches, so a run can show which
+per kernel (K7's outer mode, K13's locate mode, K1's fold and K21's
+offset mode have their own), bumped by its wrapper where it launches, so a run can show which
 kernels the main path went through; and ``HOST_STRING_PASSES``: one
 integer per string expression that the reference itself runs on the host
 (the general LIKE, replace, locate from a position past 1), bumped once
@@ -50,10 +50,12 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "singleword_rank", "murmur3", "partition_split", "find_pattern",
            "build_matched", "cross_expand", "string_map", "string_slice",
            "string_place", "find_pattern_locate", "masked_reduce_fold",
-           "fused_stage", "fused_reduce")
+           "fused_stage", "fused_reduce", "window_rank", "window_offset",
+           "segmented_scan", "frame_bounds", "frame_aggregate")
 LIBRARY_OF = {"join_expand_outer": "join_expand",
               "find_pattern_locate": "find_pattern",
-              "masked_reduce_fold": "masked_reduce"}
+              "masked_reduce_fold": "masked_reduce",
+              "window_offset": "window_rank"}
 # the kernels generated from plan/stage_codegen.py, built by NVRTC
 GENERATED = ("fused_stage", "fused_reduce")
 # the libraries, one csrc/<name>.cu each
@@ -168,6 +170,24 @@ _SIGNATURES = {
     "string_place": {
         "string_place": (_I, [ctypes.POINTER(Operand), _I, _L, _I, _I, _I,
                               _P, _I, _P, _P, _P, _P]),
+    },
+    "window_rank": {
+        "window_rank": (_I, [_I, _P, _P, _P, _P, _P, _L, _P, _P]),
+        "window_offset": (_I, [_P, _P, _L, _L, _P, _P, _P]),
+    },
+    "segmented_scan": {
+        "segmented_scan": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                                _P, _P]),
+        "segmented_scan_scratch_bytes": (_L, [_L]),
+    },
+    "frame_bounds": {
+        "frame_bounds": (_I, [_I, _P, _P, _P, _P, _L, _I, _L, _I, _L, _P, _I,
+                              _P, _I, _P, _P, _P]),
+    },
+    "frame_aggregate": {
+        "frame_aggregate": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                                 _P, _P, _I, _P, _P, _P]),
+        "frame_aggregate_block_rows": (_I, []),
     },
 }
 

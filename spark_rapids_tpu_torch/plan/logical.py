@@ -1,7 +1,8 @@
 """Logical plan: the port of spark_rapids_tpu/plan/logical.py (scan, project,
-filter, aggregate, join, sort, limit, repartition) with its analysis: name
-resolution and the numeric/date coercions that insert implicit casts, and
-the size estimate the join strategy reads (``stats_bytes``).
+filter, aggregate, join, sort, limit, repartition, window) with its
+analysis: name resolution and the numeric/date coercions that insert
+implicit casts, and the size estimate the join strategy reads
+(``stats_bytes``).
 
 The scan's data is a :class:`HostTable` of numpy columns; the port needs no
 pyarrow on the main path.
@@ -323,6 +324,24 @@ class Repartition(LogicalPlan):
         return f"Repartition {self.num_partitions} by={self.by}"
 
 
+class Window(LogicalPlan):
+    """Window operator: the child's columns, then one column per window
+    expression. ``window_exprs``: (name, WindowExpression) pairs."""
+
+    def __init__(self, child: LogicalPlan, window_exprs: List[tuple]):
+        super().__init__(child)
+        self.window_exprs = window_exprs
+
+    def expressions(self):
+        return [w for _, w in self.window_exprs]
+
+    def _compute_schema(self) -> dt.Schema:
+        fields = list(self.children[0].schema.fields)
+        for name, w in self.window_exprs:
+            fields.append(dt.Field(name, w.dtype, True))
+        return dt.Schema(fields)
+
+
 # ---------------------------------------------------------------------------
 # Analysis
 # ---------------------------------------------------------------------------
@@ -465,6 +484,9 @@ def analyze(plan: LogicalPlan) -> LogicalPlan:
                        for o in plan.orders]
     elif isinstance(plan, Repartition) and plan.by:
         plan.by = [ra(e) for e in plan.by]
+    elif isinstance(plan, Window):
+        plan.window_exprs = [(n, w.resolve_refs(child_schema))
+                             for n, w in plan.window_exprs]
     plan._schema = None
     return plan
 

@@ -8,9 +8,11 @@ left, right, full, left semi, left anti; broadcast at or under
 ``autoBroadcastJoinThreshold``, else both sides hash-exchanged into a
 shuffled join; a right join is a left join with the sides swapped under
 a column reorder), cross join (also a join with no equality key), sort (a
-range exchange and local sorts above more than one partition), limit and
-repartition, then collapses the remaining filter/project chains into
-whole stages (plan/stage_compiler.py), inserts the batch-coalescing
+range exchange and local sorts above more than one partition), limit,
+repartition, window (plan/window_exec.py) and the DISTINCT aggregates (the
+reference's two-level plan), then collapses the remaining filter/project
+chains into whole stages (plan/stage_compiler.py), inserts the
+batch-coalescing
 transitions and attaches each fused unit's generated kernel. These are
 the reference's plans without adaptive execution and without a device
 mesh.
@@ -29,14 +31,17 @@ from typing import Optional
 from .. import config as cfg
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
+from ..ops import arithmetic as ar
 from ..ops import expressions as ex
 from ..ops import predicates as pr
+from ..ops import window as W
 from ..ops.cast import Cast
 from ..shuffle.exchange import (TpuBroadcastExchangeExec, TpuHashExchangeExec,
                                 TpuRangeExchangeExec, TpuShuffleExchangeExec)
 from . import logical as lp
 from . import physical as ph
 from . import stage_compiler as sc
+from .window_exec import TpuWindowExec
 
 
 class Overrides:
@@ -100,7 +105,12 @@ class Overrides:
         if isinstance(p, lp.Filter):
             return ph.TpuFilterExec(kids[0], p.condition)
         if isinstance(p, lp.Aggregate):
-            return self._make_aggregate(p, kids[0])
+            leaves = [l for e in p.aggregate_exprs for l in e.collect(
+                lambda x: isinstance(x, lp.AggregateExpression))]
+            if any(l.distinct for l in leaves):
+                return self._convert_distinct_agg(p, kids[0], leaves)
+            return self._make_aggregate(kids[0], p.grouping,
+                                        p.aggregate_exprs)
         if isinstance(p, lp.Join):
             return self._convert_join(p, kids)
         if isinstance(p, lp.Sort):
@@ -119,17 +129,14 @@ class Overrides:
         if isinstance(p, lp.Repartition):
             return TpuShuffleExchangeExec(kids[0], p.num_partitions, p.by,
                                           split_depth=self.split_depth)
+        if isinstance(p, lp.Window):
+            _check_window(p, kids[0])
+            return TpuWindowExec(kids[0], p.window_exprs)
         raise NotImplementedError(
             f"{p.name} is not ported to the PyTorch engine yet")
 
-    def _make_aggregate(self, p: lp.Aggregate,
-                        child: ph.TpuExec) -> ph.TpuExec:
-        leaves = [l for e in p.aggregate_exprs for l in e.collect(
-            lambda x: isinstance(x, lp.AggregateExpression))]
-        if any(l.distinct for l in leaves):
-            raise NotImplementedError(
-                "DISTINCT aggregates are not ported to the PyTorch engine "
-                "yet")
+    def _make_aggregate(self, child: ph.TpuExec, grouping, outputs
+                        ) -> ph.TpuExec:
         # the fusable chain below folds into the update (stage fusion on);
         # with it off, the reference folds a single filter only
         members = []
@@ -152,23 +159,107 @@ class Overrides:
 
         if child.output_partitions <= 1:
             return mark(ph.TpuHashAggregateExec(
-                child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
-                **kw))
+                child, grouping, outputs, pre_stage=pre_stage, **kw))
         # partial (update) -> exchange on the keys -> final (merge) per
         # exchange partition; a global aggregate meets on one partition
         partial = mark(ph.TpuHashAggregateExec(
-            child, p.grouping, p.aggregate_exprs, pre_stage=pre_stage,
-            mode="partial", **kw))
-        if p.grouping:
-            keys = [ex.ColumnRef(f"_k{i}") for i in range(len(p.grouping))]
+            child, grouping, outputs, pre_stage=pre_stage, mode="partial",
+            **kw))
+        if grouping:
+            keys = [ex.ColumnRef(f"_k{i}") for i in range(len(grouping))]
             exch = TpuHashExchangeExec(partial, self.shuffle_partitions, keys,
                                        split_depth=self.split_depth)
         else:
             exch = TpuShuffleExchangeExec(partial, 1,
                                           split_depth=self.split_depth)
-        return ph.TpuHashAggregateExec(exch, p.grouping, p.aggregate_exprs,
+        return ph.TpuHashAggregateExec(exch, grouping, outputs,
                                        mode="final", per_partition_final=True,
                                        **kw)
+
+    def _convert_distinct_agg(self, p: lp.Aggregate, child: ph.TpuExec,
+                              leaves) -> ph.TpuExec:
+        """DISTINCT aggregates as the reference plans them
+        (plan/overrides.py:_convert_distinct_agg): two aggregates.
+
+          inner: group by (keys..., v), which dedupes the distinct column
+                 while computing the non-distinct aggregates per (keys, v)
+          outer: group by keys; the distinct aggregates run over the now
+                 unique v values, the non-distinct ones merge their inner
+                 partials (count -> sum, sum -> sum, avg -> sum / count)
+
+        One distinct column set, and count, sum, avg, min and max only:
+        anything else raises, as the reference tags it will_not_work."""
+        d_leaves = [l for l in leaves if l.distinct]
+        nd_leaves = [l for l in leaves if not l.distinct]
+        bad = [l.op for l in d_leaves
+               if l.op not in ("count", "sum", "avg", "min", "max")]
+        if bad:
+            raise NotImplementedError(
+                f"DISTINCT {bad[0]}: only count/sum/avg/min/max take "
+                "DISTINCT (the reference's will_not_work)")
+        if len({repr(l.children[0]) for l in d_leaves if l.children}) > 1:
+            raise NotImplementedError(
+                "more than one DISTINCT aggregate column set (the "
+                "reference's will_not_work)")
+        v_expr = d_leaves[0].children[0]
+        inner_grouping = list(p.grouping) + [v_expr]
+        inner_outputs = [ex.Alias(g, f"_g{i}")
+                         for i, g in enumerate(p.grouping)]
+        inner_outputs.append(ex.Alias(v_expr, "_v"))
+        nd_parts = {}
+        for i, l in enumerate(nd_leaves):
+            if l.op == "avg":
+                c = l.children[0]
+                inner_outputs += [
+                    ex.Alias(lp.AggregateExpression("sum", c), f"_nd{i}_s"),
+                    ex.Alias(lp.AggregateExpression("count", c),
+                             f"_nd{i}_c")]
+                nd_parts[i] = [f"_nd{i}_s", f"_nd{i}_c"]
+            else:
+                inner_outputs.append(ex.Alias(lp.AggregateExpression(
+                    l.op, l.children[0] if l.children else None,
+                    ignore_nulls=l.ignore_nulls), f"_nd{i}"))
+                nd_parts[i] = [f"_nd{i}"]
+        inner = self._make_aggregate(child, inner_grouping, inner_outputs)
+
+        def ref(name: str) -> ex.ColumnRef:
+            return ex.ColumnRef(name).resolve(inner.schema)
+
+        def merge_leaf(i: int, l) -> ex.Expression:
+            names = nd_parts[i]
+            if l.op == "avg":
+                s = lp.AggregateExpression("sum", ref(names[0]))
+                c = lp.AggregateExpression("sum", ref(names[1]))
+                num = s if s.dtype == dt.FLOAT64 else Cast(s, dt.FLOAT64)
+                return ar.Divide(num, Cast(c, dt.FLOAT64))
+            if l.op in ("count", "count_star", "sum"):
+                return lp.AggregateExpression("sum", ref(names[0]))
+            return lp.AggregateExpression(l.op, ref(names[0]),
+                                          ignore_nulls=l.ignore_nulls)
+
+        def rewrite(e: ex.Expression) -> ex.Expression:
+            def fn(node):
+                for l in d_leaves:
+                    if node is l:
+                        return lp.AggregateExpression(l.op, ref("_v"))
+                for i, l in enumerate(nd_leaves):
+                    if node is l:
+                        return merge_leaf(i, l)
+                for gi, g in enumerate(p.grouping):
+                    if node is g or (
+                            isinstance(node, ex.ColumnRef) and
+                            isinstance(g, ex.ColumnRef) and
+                            node.col_name == g.col_name):
+                        return ref(f"_g{gi}")
+                return None
+            # top-down: leaves match by identity, which a bottom-up pass
+            # would break by copying nodes whose children were rewritten
+            return e.transform_down(fn)
+
+        outer_grouping = [ref(f"_g{i}") for i in range(len(p.grouping))]
+        outer_outputs = [ex.Alias(rewrite(e), ex.output_name(e, i))
+                         for i, e in enumerate(p.aggregate_exprs)]
+        return self._make_aggregate(inner, outer_grouping, outer_outputs)
 
     def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
         """A cross join, or a join with no condition or no equality key,
@@ -313,7 +404,12 @@ def _prune_scan_columns(root: lp.LogicalPlan) -> lp.LogicalPlan:
     the root's output (by name, as the reference does)."""
     referenced = set(root.schema.names())
     for p in _walk(root):
-        for e in p.expressions():
+        exprs = list(p.expressions())
+        if isinstance(p, lp.Window):
+            # the spec's keys are not children of the window expression
+            exprs += [k for _n, w in p.window_exprs
+                      for k in w.spec.key_expressions()]
+        for e in exprs:
             for n in e.collect(lambda x: isinstance(x, ex.ColumnRef)):
                 referenced.add(n.col_name)
 
@@ -333,3 +429,64 @@ def _prune_scan_columns(root: lp.LogicalPlan) -> lp.LogicalPlan:
         return out
 
     return rewrite(root)
+
+
+def _check_window(p: lp.Window, child: ph.TpuExec) -> None:
+    """The reference's window tagging (plan/overrides.py:392-410): a RANGE
+    frame takes one ascending order key of at most 32 bits. Where the
+    reference sends a window elsewhere, the port raises (it has no CPU
+    engine). It also raises where the input holds more than one partition
+    not clustered on the window's partition keys: the reference computes
+    each partition apart there, and a window partition split over two
+    input partitions gets wrong rows."""
+    for _name, w in p.window_exprs:
+        frame, orders = w.spec.frame, w.spec.order_by
+        if frame is not None and frame.is_range:
+            if len(orders) != 1:
+                raise NotImplementedError(
+                    "a RANGE frame needs exactly one order key (the "
+                    "reference runs it on its CPU engine)")
+            if not orders[0].ascending:
+                raise NotImplementedError(
+                    "a RANGE frame over a descending order key (the "
+                    "reference runs it on its CPU engine)")
+            if orders[0].child.dtype not in W.RANGE_KEY_TYPES:
+                raise NotImplementedError(
+                    f"a RANGE frame over a {orders[0].child.dtype} order "
+                    "key: it takes at most 32-bit integral or date keys "
+                    "(the reference runs it on its CPU engine)")
+        f = w.function
+        if isinstance(f, lp.AggregateExpression) and f.op not in \
+                W.FRAME_OPS and orders and not (
+                    frame is None or frame.is_whole_partition):
+            raise NotImplementedError(
+                f"{f.op} over a running or bounded window frame (the "
+                "reference takes count, sum, avg, min and max there)")
+        keys = {e.col_name for e in w.spec.partition_by
+                if isinstance(e, ex.ColumnRef)}
+        if not _clustered_on(child, keys):
+            raise NotImplementedError(
+                f"a window over {child.output_partitions} input partitions "
+                "that are not clustered on its partition keys: the "
+                "reference computes each partition apart (wrong rows when "
+                "a window partition spans two)")
+
+
+def _clustered_on(node: ph.TpuExec, keys) -> bool:
+    """Whether all rows of one value of the columns ``keys`` lie in one
+    output partition of ``node``: one partition, or a hash partitioning
+    on a subset of them (a final aggregate over its exchange, a hash
+    exchange), seen through filters and coalescing."""
+    if node.output_partitions <= 1:
+        return True
+    while isinstance(node, (ph.TpuFilterExec, ph.TpuCoalesceBatchesExec)):
+        node = node.children[0]
+    if isinstance(node, ph.TpuHashAggregateExec) and node.mode == "final" \
+            and node.per_partition_final:
+        g = node.grouping_src
+        return bool(g) and all(isinstance(e, ex.ColumnRef) and
+                               e.col_name in keys for e in g)
+    if isinstance(node, TpuShuffleExchangeExec) and node.by:
+        return all(isinstance(b, ex.BoundReference) and b.col_name in keys
+                   for b in node.by)
+    return False

@@ -1,5 +1,7 @@
-"""TPC-H q1 to q15, q17 to q20 and q22 on the port's DataFrame API: the same expressions as
-benchmarks/queries.py (which builds them on the JAX package's API), and
+"""The 22 TPC-H queries on the port's DataFrame API: the same expressions
+as benchmarks/queries.py (which builds them on the JAX package's API);
+TPC-DS q12, q20, q98 and q89 (window sums and averages over a whole
+partition) as benchmarks/tpcds_queries.py builds them; and
 ``headline``: the session form of the root bench.py's
 pipeline (filter -> project -> dense-range group-by) over its data
 (:func:`build_inputs`, :func:`headline_table`).
@@ -14,6 +16,7 @@ import numpy as np
 
 from .api import functions as F
 from .api.functions import col, lit
+from .api.window import Window
 
 # 1994-01-01 / 1995-01-01 / 1995-03-15 / 1995-09-01 / 1998-09-02 as days
 # since epoch
@@ -413,6 +416,131 @@ def q9(t):
             .orderBy(col("n_name").asc(), col("o_year").desc()))
 
 
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+
+
+def q16(t):
+    """Parts/supplier relationship: anti join (NOT IN subquery) + count
+    DISTINCT over a multi-key string group (the reference's s_comment LIKE
+    adapted to negative account balances)."""
+    bad_supp = t["supplier"].filter(col("s_acctbal") < lit(0))
+    ps = (t["partsupp"]
+          .join(bad_supp, on=(col("ps_suppkey") == col("s_suppkey")),
+                how="left_anti"))
+    p = t["part"].filter(
+        (col("p_brand") != lit("Brand#45")) &
+        ~col("p_type").startswith("MEDIUM POLISHED") &
+        col("p_size").isin(*Q16_SIZES))
+    return (ps.join(p, on=(col("ps_partkey") == col("p_partkey")))
+            .groupBy("p_brand", "p_type", "p_size")
+            .agg(F.countDistinct(col("ps_suppkey")).alias("supplier_cnt"))
+            .orderBy(col("supplier_cnt").desc(), col("p_brand").asc(),
+                     col("p_type").asc(), col("p_size").asc()))
+
+
+def q21(t):
+    """Suppliers who kept orders waiting: the EXISTS/NOT EXISTS pair over
+    lineitem decorrelated into per-order distinct-supplier counts (at least
+    2 suppliers, exactly 1 late one); FRANCE, as the reference."""
+    li = t["lineitem"]
+    ord_supp = (li.groupBy("l_orderkey")
+                .agg(F.countDistinct(col("l_suppkey")).alias("nsupp"))
+                .withColumnRenamed("l_orderkey", "os_orderkey"))
+    late = li.filter(col("l_receiptdate") > col("l_commitdate"))
+    late_supp = (late.groupBy("l_orderkey")
+                 .agg(F.countDistinct(col("l_suppkey")).alias("nlate"))
+                 .withColumnRenamed("l_orderkey", "ls_orderkey"))
+    o = t["orders"].filter(col("o_orderstatus") == lit("F"))
+    n = t["nation"].filter(col("n_name") == lit("FRANCE"))
+    s = t["supplier"].join(n, on=(col("s_nationkey") == col("n_nationkey")))
+    return (late
+            .join(o, on=(col("l_orderkey") == col("o_orderkey")))
+            .join(s, on=(col("l_suppkey") == col("s_suppkey")))
+            .join(ord_supp.filter(col("nsupp") >= lit(2)),
+                  on=(col("l_orderkey") == col("os_orderkey")))
+            .join(late_supp.filter(col("nlate") == lit(1)),
+                  on=(col("l_orderkey") == col("ls_orderkey")))
+            .groupBy("s_name")
+            .agg(F.count("*").alias("numwait"))
+            .orderBy(col("numwait").desc(), col("s_name").asc())
+            .limit(100))
+
+
+# TPC-DS (benchmarks/tpcds_queries.py): d_date_sk of the generator's first
+# day
+_D0 = 2450815
+
+
+def _channel_revenue_ratio(sales, t, pfx):
+    """q12/q20/q98's shape: category-filtered item revenue over a 31-day
+    window with each item's share of its class's revenue (a window sum over
+    the whole ``i_class`` partition)."""
+    d = t["date_dim"].filter(
+        (col("d_date_sk") >= lit(_D0 + 45)) &
+        (col("d_date_sk") <= lit(_D0 + 75)))
+    i = t["item"].filter(col("i_category").isin("Books", "Home", "Sports"))
+    per_item = (sales
+                .join(d, on=(col(f"{pfx}_sold_date_sk") == col("d_date_sk")))
+                .join(i, on=(col(f"{pfx}_item_sk") == col("i_item_sk")))
+                .groupBy("i_item_id", "i_category", "i_class",
+                         "i_current_price")
+                .agg(F.sum(f"{pfx}_ext_sales_price").alias("itemrevenue")))
+    w = Window.partitionBy("i_class")
+    return (per_item
+            .select(col("i_item_id"), col("i_category"), col("i_class"),
+                    col("i_current_price"), col("itemrevenue"),
+                    (col("itemrevenue") * 100 /
+                     F.sum("itemrevenue").over(w)).alias("revenueratio"))
+            .orderBy(col("i_category").asc(), col("i_class").asc(),
+                     col("i_item_id").asc(), col("i_current_price").asc(),
+                     col("revenueratio").asc())
+            .limit(100))
+
+
+def tpcds_q12(t):
+    """Web revenue ratio by class (TPC-DS Query12)."""
+    return _channel_revenue_ratio(t["web_sales"], t, "ws")
+
+
+def tpcds_q20(t):
+    """Catalog revenue ratio by class (TPC-DS Query20)."""
+    return _channel_revenue_ratio(t["catalog_sales"], t, "cs")
+
+
+def tpcds_q98(t):
+    """Store revenue ratio by class (TPC-DS Query98)."""
+    return _channel_revenue_ratio(t["store_sales"], t, "ss")
+
+
+def tpcds_q89(t):
+    """Monthly class sales against the store/brand average: avg OVER
+    (PARTITION BY category, brand, store), rows more than 10% off it (TPC-DS
+    Query89)."""
+    d = t["date_dim"].filter(col("d_year") == lit(1999))
+    i = t["item"].filter(col("i_category").isin("Books", "Electronics",
+                                                "Sports"))
+    monthly = (t["store_sales"]
+               .join(d, on=(col("ss_sold_date_sk") == col("d_date_sk")))
+               .join(i, on=(col("ss_item_sk") == col("i_item_sk")))
+               .join(t["store"],
+                     on=(col("ss_unit_sk") == col("s_store_sk")))
+               .groupBy("i_category", "i_class", "i_brand", "s_store_id",
+                        "d_moy")
+               .agg(F.sum("ss_sales_price").alias("sum_sales")))
+    w = Window.partitionBy("i_category", "i_brand", "s_store_id")
+    out = monthly.select(
+        col("i_category"), col("i_class"), col("i_brand"),
+        col("s_store_id"), col("d_moy"), col("sum_sales"),
+        F.avg("sum_sales").over(w).alias("avg_monthly_sales"))
+    dev = (col("sum_sales") - col("avg_monthly_sales"))
+    return (out.filter((dev > col("avg_monthly_sales") * 0.1) |
+                       (dev < col("avg_monthly_sales") * -0.1))
+            .orderBy(col("i_category").asc(), col("i_class").asc(),
+                     col("i_brand").asc(), col("s_store_id").asc(),
+                     col("d_moy").asc())
+            .limit(100))
+
+
 HEADLINE_KEYS = 1024
 
 
@@ -455,7 +583,10 @@ def headline(t):
 QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6, "q12": q12, "q13": q13,
            "q11": q11, "q15": q15, "q22": q22, "q2": q2, "q17": q17,
            "q5": q5, "q10": q10, "q14": q14, "q18": q18, "q19": q19,
-           "q20": q20, "q7": q7, "q8": q8, "q9": q9, "headline": headline}
+           "q20": q20, "q7": q7, "q8": q8, "q9": q9, "q16": q16,
+           "q21": q21, "tpcds_q12": tpcds_q12, "tpcds_q20": tpcds_q20,
+           "tpcds_q98": tpcds_q98, "tpcds_q89": tpcds_q89,
+           "headline": headline}
 # the tables each query reads, its largest last
 TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q3": ("customer", "orders", "lineitem"),
@@ -477,13 +608,54 @@ TABLES = {"headline": ("headline",), "q1": ("lineitem",), "q6": ("lineitem",),
           "q8": ("region", "nation", "part", "supplier", "customer",
                  "orders", "lineitem"),
           "q9": ("nation", "part", "supplier", "partsupp", "orders",
-                 "lineitem")}
+                 "lineitem"),
+          "q16": ("supplier", "part", "partsupp"),
+          "q21": ("nation", "supplier", "orders", "lineitem"),
+          # TPC-DS: benchmarks/datagen.py's register_tpcds_tables
+          "tpcds_q12": ("date_dim", "item", "web_sales"),
+          "tpcds_q20": ("date_dim", "item", "catalog_sales"),
+          "tpcds_q98": ("date_dim", "item", "store_sales"),
+          "tpcds_q89": ("date_dim", "store", "item", "store_sales")}
+
+
+def tpcds_tables(sf: float, channels=("store_sales",),
+                 date_span: int = 365 * 5) -> dict:
+    """benchmarks/datagen.py's TPC-DS tables as numpy columns, drawn as
+    its register_tpcds_tables draws them (one generator, seed 52, sales
+    channels and their returns in its order), up to the last sales channel
+    asked for, with date_dim, item and store's key and id: the tables of
+    the TPC-DS queries above, for the session's ``createDataFrame``."""
+    from benchmarks import datagen
+    rng = np.random.default_rng(52)
+    out = {}
+    for name, per_sf, pfx, rpfx, units in (
+            ("store_sales", datagen.STORE_SALES_PER_SF, "ss", "sr",
+             datagen.N_STORES),
+            ("catalog_sales", datagen.CATALOG_SALES_PER_SF, "cs", "cr",
+             datagen.N_CATALOG_PAGES),
+            ("web_sales", datagen.WEB_SALES_PER_SF, "ws", "wr",
+             datagen.N_WEB_SITES)):
+        if not set(channels) - set(out):
+            break
+        n = max(int(per_sf * sf), 10)
+        out[name] = datagen._sales_channel(n, rng, pfx, units, date_span)
+        datagen._returns_channel(n // datagen.RETURN_FRACTION, rng, rpfx,
+                                 units, date_span)
+    out = {k: v for k, v in out.items() if k in channels}
+    out["date_dim"] = datagen.gen_date_dim()
+    out["item"] = datagen.gen_item()
+    k = datagen.N_STORES
+    out["store"] = {
+        "s_store_sk": np.arange(1, k + 1, dtype=np.int64),
+        "s_store_id": np.array([f"AAAAAAAA{i:04d}" for i in range(1, k + 1)])}
+    return out
 
 
 def table_schema(columns) -> dict:
     """SQL types numpy TPC-H columns need beyond their numpy dtypes: every
     ``*date`` column is a DATE. The other columns of lineitem, orders,
     customer, supplier, partsupp, nation, part and region (keys,
-    quantities, prices, names, comments, phones, part attributes) keep the
-    types their numpy arrays give them."""
+    quantities, prices, names, comments, phones, part attributes), and
+    every column of the TPC-DS tables (``*_date_sk`` keys are integers),
+    keep the types their numpy arrays give them."""
     return {name: "date" for name in columns if name.endswith("date")}

@@ -1,7 +1,8 @@
 """TPC-H q22, q2 and q17 (string expressions, withColumnRenamed), q5,
 q10, q14, q18, q19 and q20 (a six-way join, a many-group aggregate,
-disjunctive string IN lists) and q7, q8 and q9 (``F.year`` over joined
-nations, parts and partsupp) through the PyTorch port's session on the
+disjunctive string IN lists), q7, q8 and q9 (``F.year`` over joined
+nations, parts and partsupp) and q16 and q21 (count DISTINCT) through the
+PyTorch port's session on the
 CPU, against the JAX package's engine on the same benchmarks/datagen.py
 tables. Rows must be equal, floats within 1e-12 relative. Each query runs
 on its default plan (small tables broadcast); q22, q2 and q17 also on the
@@ -26,7 +27,7 @@ from spark_rapids_tpu_torch.api.session import TpuSession
 SF = 0.001
 STRING_QUERIES = ("q22", "q2", "q17")
 QUERIES = STRING_QUERIES + ("q5", "q10", "q14", "q18", "q19", "q20",
-                            "q7", "q8", "q9")
+                            "q7", "q8", "q9", "q16", "q21")
 SHUFFLED = {"spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1,
             "spark.rapids.tpu.sql.shuffle.partitions": 8}
 

@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
      timed; every kernel is rebuilt, whatever _build/ already holds; then
      the generated stage kernels of the main path's plans (planned over
      tiny tables) compiled by NVRTC and loaded, counted and timed;
-  3. each kernel (K1-K24, K7's outer mode, K13's locate mode, K1's fold
+  3. each kernel (K1-K28, K7's outer mode, K13's locate mode, K1's fold
      alone and K21's offset mode) against
      its plain PyTorch twin on the card, at the main path's shapes and at
      edge cases, with the stated tolerance,
@@ -39,7 +39,12 @@ Phases, each printing one JSON line:
      aggregates) bit for bit over NULL, NaN, -0.0 and tied keys, one-row
      and one-segment batches, empty frames, unbounded ends and RANGE keys
      at the int32 edges, timed at the windows phase's shapes and at 2^20
-     rows;
+     rows; K25-K28 (explode expansion, split count and place, map lookup
+     and build) bit for bit over every primitive element type at widths
+     4-64, NULL and empty arrays, NULL elements, random UTF-8 rows with the
+     split's edge cases, duplicate and absent keys, NULL values, float
+     maps, a float key on an int map and a bigint key on an int map,
+     timed at the nested phase's shapes;
      then K2, K3 and K11 at 9 and 17 key columns (their wrappers split the
      keys into blocks of 8) against their one-pass twins, and K12 at 5000
      and 65536 partitions (its device-memory counters);
@@ -60,7 +65,12 @@ Phases, each printing one JSON line:
      Spark's rules, with the host passes of the general LIKE and replace
      counted, then the windows phase (W1-W6: ranks, lead/lag and running
      aggregates over orders, ROWS and RANGE frames and a whole-partition
-     sum over lineitem in one 2^26-row batch) against numpy oracles (the
+     sum over lineitem in one 2^26-row batch), then the nested phase
+     (N1: o_comment split into words and counted; N2: p_type's words by
+     position; N3: create_map over three lineitem keys, looked up,
+     posexploded and measured; N4: a 2^20-row struct column made from
+     python dicts, shredded into a filter and an aggregate, and whole
+     through a broadcast join) against numpy oracles (the
      tables are drawn and every oracle computed on host threads while
      the kernels build, all of them finished before the kernel checks,
      so no timed phase shares the host with them); the launch counters
@@ -2641,6 +2651,409 @@ def check_k24(device, rng) -> dict:
             "library": "none: no single PyTorch call computes it",
             "at_2_20": out["at_2_20"]}
 
+# ---------------------------------------------------------------------------
+# K25-K28: nested types
+# ---------------------------------------------------------------------------
+
+NESTED_ELEM_TYPES = ("boolean", "tinyint", "smallint", "int", "bigint",
+                     "float", "double", "date", "timestamp")
+ARRAY_WIDTHS = (4, 8, 16, 32, 64)
+
+
+def array_column(rng, tname: str, cap: int, n: int, w: int, device,
+                 fill: float = 0.6):
+    """An ARRAY<tname> column of ``cap`` rows, the first ``n`` live: NULL
+    arrays (10%), empty ones, NULL elements (10%), lengths up to ``w``
+    (about ``fill`` of it); junk values past every length; dead rows
+    invalid."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    t = dt.of(f"array<{tname}>")
+    et = t.element
+    if et == dt.BOOL:
+        data = rng.integers(0, 2, (cap, w)).astype(np.bool_)
+    elif et.is_floating:
+        data = (rng.integers(-4000, 4000, (cap, w)) / 4).astype(
+            et.numpy_dtype)
+        data[rng.random((cap, w)) < 0.05] = np.nan
+    else:
+        info = np.iinfo(et.numpy_dtype)
+        data = rng.integers(info.min, info.max, (cap, w),
+                            dtype=et.numpy_dtype, endpoint=True)
+    lengths = np.minimum(rng.poisson(fill * w, cap), w).astype(np.int32)
+    lengths[rng.random(cap) < 0.1] = 0
+    valid = np.zeros(cap, np.bool_)
+    valid[:n] = rng.random(n) >= 0.1
+    evalid = rng.random((cap, w)) >= 0.1
+    evalid &= np.arange(w)[None, :] < lengths[:, None]
+    lengths = np.where(valid, lengths, 0).astype(np.int32)
+    return Column(t, torch.from_numpy(data).to(device),
+                  torch.from_numpy(valid).to(device),
+                  torch.from_numpy(lengths).to(device),
+                  torch.from_numpy(evalid).to(device))
+
+
+def _exploded_err(got, want, what: str) -> float:
+    if got.count != want.count:
+        raise AssertionError(f"{what}: {got.count} vs {want.count} rows")
+    for part in ("src", "pos", "total", "values", "values_valid"):
+        a, b = getattr(got, part), getattr(want, part)
+        if a is None and b is None:
+            continue
+        if a.dtype.is_floating_point:
+            it = {8: "int64", 4: "int32", 2: "int16"}[a.element_size()]
+            import torch
+            a, b = a.view(getattr(torch, it)), b.view(getattr(torch, it))
+        tensor_err(a.reshape(-1), b.reshape(-1), f"{what} {part}")
+    return 0.0
+
+
+def map_lanes_batch(rng, cap: int, n: int, device, entries: int = 3):
+    """A map<bigint,bigint> column as create_map(1, a, 2, b, 3, c) builds it
+    (N3's shape) and its int64 lookup keys (l_orderkey % 4 + 1: datagen's
+    lineitem has no l_linenumber)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column
+    from spark_rapids_tpu_torch.ops import maps as M
+    live = torch.arange(cap, device=device) < n
+    ones = torch.ones(cap, dtype=torch.bool, device=device)
+    keys = [Column(dt.INT64, torch.full((cap,), j + 1, dtype=torch.int64,
+                                        device=device), ones)
+            for j in range(entries)]
+    vals = [Column(dt.INT64, torch.from_numpy(
+        rng.integers(1, 60_000_000, cap)).to(device), ones)
+        for _ in range(entries)]
+    m = M.map_build(keys, vals, live, dt.MAP(dt.INT64, dt.INT64))
+    lk = Column(dt.INT64, torch.from_numpy(
+        rng.integers(1, 8, cap) % 4 + 1).to(device), live)
+    return m, keys, vals, live, lk
+
+
+def check_k25(device, rng) -> dict:
+    """K25 against its twin, bit for bit: every primitive element type at
+    widths 4-64 with NULL arrays, empty arrays, NULL elements and dead
+    rows; index mode; an all-empty batch. Timed at N3(b)'s shape: one
+    2^20-row batch of map_values(m) (3 elements a row)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import arrays as A
+    from spark_rapids_tpu_torch.ops import maps as M
+    checks = 0
+    for i, tname in enumerate(NESTED_ELEM_TYPES):
+        for w in ARRAY_WIDTHS:
+            cap = 4096 if w < 64 else 1024
+            n = cap - int(rng.integers(0, 300))
+            arr = array_column(rng, tname, cap, n, w, device)
+            live = torch.arange(cap, device=device) < n
+            args = (arr.lengths, arr.validity, live, arr.data,
+                    arr.elem_validity)
+            _exploded_err(A.explode_expand(*args),
+                          A._explode_expand_torch(*args),
+                          f"K25 {tname} w={w}")
+            _exploded_err(A.explode_expand(*args[:3]),
+                          A._explode_expand_torch(*args[:3]),
+                          f"K25 index mode {tname} w={w}")
+            checks += 2
+    zero = torch.zeros(256, dtype=torch.int32, device=device)
+    ones = torch.ones(256, dtype=torch.bool, device=device)
+    _exploded_err(A.explode_expand(zero, ones, ones),
+                  A._explode_expand_torch(zero, ones, ones), "K25 empty")
+    cap = 1 << 20
+    m, _k, _v, live, _lk = map_lanes_batch(rng, cap, cap, device)
+    _keys, vals, vv, w = M._halves(m)
+    arr = M._as_array(m, vals, m.dtype.element, vv)
+    data, ev = arr.data.contiguous(), arr.elem_validity.contiguous()
+    args = (arr.lengths, arr.validity, live, data, ev)
+    _exploded_err(A.explode_expand(*args), A._explode_expand_torch(*args),
+                  "K25 N3(b) batch")
+    checks += 2
+    out = A.explode_expand(*args)
+    total = out.count
+    lens = arr.lengths.to(torch.int64)
+    n_el = int(lens.sum())
+    # counts, validity and the live mask read; the elements of the live
+    # arrays and their validity read; src, pos, value and its validity
+    # written over the output capacity
+    nbytes = cap * (4 + 1 + 1) + n_el * (8 + 1) + out.out_capacity * (
+        4 + 4 + 8 + 1)
+    idx = torch.arange(cap, device=device)
+    return {
+        "name": "explode_expand", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (bits)", "rows": cap, "width": w,
+        "out_rows": total, "out_capacity": out.out_capacity,
+        "timed": "array mode over one 2^20-row batch of N3(b)'s "
+                 "map_values (3 int64 elements a row), its one size read "
+                 "included",
+        "ms": time_ms(lambda: A.explode_expand(*args)),
+        "plain_ms": time_ms(lambda: A._explode_expand_torch(*args),
+                            iters=5),
+        "bound_ms": bound_ms(nbytes),
+        "library_ms": time_ms(lambda: torch.repeat_interleave(
+            idx, lens, output_size=total)),
+        "library": "torch.repeat_interleave (the source-row half only)"}
+
+
+SPLIT_DELIMS = (" ", ",", "a", "\x80")
+
+
+def check_k26(device, rng) -> dict:
+    """K26's count and place modes (over K25's index mode) against their
+    twins, bit for bit: random UTF-8 rows with junk past every length at
+    widths 8-256, delimiters at the ends and doubled, an empty string, NULL
+    rows, a delimiter in the last byte of the width. Timed at N1's shape:
+    one 2^20-row batch of o_comment split on ' '."""
+    import torch
+    from spark_rapids_tpu_torch.ops import arrays as A
+    checks = 0
+    for w in STRING_WIDTHS:
+        col = utf8_rows(rng, 3000, 4096, w, device)
+        # edge rows: '', the delimiter alone, doubled, at both ends, and
+        # filling the width with the delimiter in its last byte
+        for delim in SPLIT_DELIMS:
+            d = delim.encode("latin-1")[0]
+            data = col.data.clone()
+            lens = col.lengths.clone()
+            edge = [b"", bytes([d]), bytes([d, d]),
+                    bytes([d]) + b"xy" + bytes([d]),
+                    b"q" * (w - 1) + bytes([d]), bytes([d]) * w]
+            for i, b in enumerate(edge):
+                data[i] = 0
+                if b:
+                    data[i, :len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+                lens[i] = len(b)
+            # sprinkle the delimiter inside the strings
+            hit = torch.rand(data.shape, device=device) < 0.08
+            data = torch.where(hit, torch.tensor(d, dtype=torch.uint8,
+                                                 device=device), data)
+            from spark_rapids_tpu_torch.columnar.column import Column
+            valid = col.validity.clone()
+            valid[:len(edge)] = True
+            c = Column(col.dtype, data.contiguous(), valid, lens)
+            live = torch.arange(c.capacity, device=device) < 3000
+            tensor_err(A.split_count(c, d), A._split_count_torch(c, d),
+                       f"K26 count w={w} delim {delim!r}")
+            counts = A._split_count_torch(c, d)
+            ex = A._explode_expand_torch(counts, c.validity, live)
+            got = A.split_place(c, d, ex)
+            want = A._split_place_torch(c, d, ex)
+            _string_cols_err((got.data, got.lengths, got.validity),
+                             (want.data, want.lengths, want.validity),
+                             f"K26 place w={w} delim {delim!r}")
+            checks += 2
+    cap = 1 << 20
+    col = _comments(rng, cap - 777, cap, device, null_frac=0.02)
+    live = torch.arange(cap, device=device) < cap - 777
+    d = ord(" ")
+    counts = A.split_count(col, d)
+    ex = A.explode_expand(counts, col.validity, live)
+    got = A.split_place(col, d, ex)
+    want = A._split_place_torch(col, d, ex)
+    _string_cols_err((got.data, got.lengths, got.validity),
+                     (want.data, want.lengths, want.validity),
+                     "K26 N1 batch")
+    checks += 1
+    w = col.data.shape[1]
+    lens = col.lengths.to(torch.int64)
+    # count mode: every row's validity read, a valid row's bytes and
+    # length read, the parts written over the capacity
+    n_valid = int(col.validity.sum())
+    count_bytes = (int(lens[col.validity].sum()) + n_valid * 4 +
+                   cap * (1 + 4))
+    # place mode: the bytes and length of each source row that has a
+    # part, read once; src and pos of each output row and the total read;
+    # bytes, lengths and validity written over the output capacity
+    has_part = torch.zeros(cap, dtype=torch.bool, device=device)
+    has_part[ex.src[:ex.count].to(torch.int64)] = True
+    place_bytes = (int(lens[has_part].sum()) + int(has_part.sum()) * 4 +
+                   ex.count * (4 + 4) + 8 + ex.out_capacity * (w + 4 + 1))
+    count_ms = time_ms(lambda: A.split_count(col, d))
+    place_ms = time_ms(lambda: A.split_place(col, d, ex))
+    return {
+        "name": "split_parts", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (bytes, lengths, validity)", "rows": cap,
+        "width": w, "out_rows": ex.count,
+        "timed": "count mode + place mode over one 2^20-row batch of "
+                 "o_comment split on ' ' (N1's shape)",
+        "ms": count_ms + place_ms, "count_ms": count_ms,
+        "place_ms": place_ms,
+        "plain_ms": time_ms(lambda: A._split_count_torch(col, d)) +
+        time_ms(lambda: A._split_place_torch(col, d, ex), iters=5),
+        "bound_ms": bound_ms(count_bytes + place_bytes),
+        "count_bound_ms": bound_ms(count_bytes),
+        "place_bound_ms": bound_ms(place_bytes),
+        "library_ms": None,
+        "library": "none: no PyTorch call splits strings"}
+
+
+# (map type, key type, the lookup keys: column keys and scalars)
+LOOKUP_CASES = (
+    ("map<bigint,bigint>", "bigint", (1, 4, -7)),
+    ("map<int,double>", "int", ((1 << 32) + 3, 3, 1.5)),
+    ("map<double,float>", "double", (0.5, -0.0, 2, float("nan"))),
+    ("map<float,int>", "float", (0.25, 3)),
+    ("map<smallint,boolean>", "smallint", (5, 70000)),
+    ("map<date,timestamp>", "date", (11,)),
+    ("map<tinyint,tinyint>", "tinyint", (3, 300)),
+    ("map<boolean,smallint>", "boolean", (True, 0)),
+)
+
+
+def random_map_column(rng, mtype: str, cap: int, n: int, w: int, device):
+    """A MAP column of raw lanes: keys from a small range (duplicates
+    inside a row, so the first match counts), NULL values, NULL maps,
+    empty maps, junk lanes past every length."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import (
+        Column, _bits_from_values)
+    t = dt.of(mtype)
+
+    def draw(tt, shape):
+        if tt == dt.BOOL:
+            return rng.integers(0, 2, shape)
+        if tt.is_floating:
+            return np.asarray(rng.integers(-8, 12, shape) / 4, np.float64)
+        if tt == dt.INT8:
+            return rng.integers(-128, 128, shape)
+        return rng.integers(-6, 14, shape)
+    k = draw(t.key, (cap, w))
+    v = draw(t.element, (cap, w))
+    mat = np.zeros((cap, 3 * w), np.int64)
+    mat[:, 0::3] = (np.asarray(k, np.float64).view(np.int64)
+                    if t.key.is_floating else np.asarray(k, np.int64))
+    mat[:, 1::3] = (np.asarray(v, np.float64).view(np.int64)
+                    if t.element.is_floating else np.asarray(v, np.int64))
+    mat[:, 2::3] = rng.random((cap, w)) >= 0.15
+    lengths = rng.integers(0, w + 1, cap).astype(np.int32)
+    valid = np.zeros(cap, np.bool_)
+    valid[:n] = rng.random(n) >= 0.1
+    lengths = np.where(valid, lengths, 0).astype(np.int32)
+    return Column(t, torch.from_numpy(mat).to(device),
+                  torch.from_numpy(valid).to(device),
+                  torch.from_numpy(lengths).to(device))
+
+
+def check_k27(device, rng) -> dict:
+    """K27 against its twin, bit for bit, over scalar and column keys:
+    duplicate keys in a row, absent keys, NULL values, NULL maps, float
+    maps (float64 and float32 keys and values), a float key on an int map
+    (no truncation), a bigint key on an int map (no wrap). Timed at
+    N3(a)'s shape: element_at over one 2^20-row batch."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.columnar.column import Column, Scalar
+    from spark_rapids_tpu_torch.ops import maps as M
+    checks = 0
+    for mtype, ktype, scalars in LOOKUP_CASES:
+        for w in (4, 16, 64):
+            cap = 4096
+            n = cap - 100
+            m = random_map_column(rng, mtype, cap, n, w, device)
+            kt = dt.of(ktype)
+            if kt.is_floating:
+                kv = rng.integers(-8, 12, n) / 4
+                kv[rng.random(n) < 0.05] = np.nan
+            else:
+                kv = rng.integers(-6, 14, n) if kt != dt.BOOL else \
+                    rng.integers(0, 2, n)
+            kcol = Column.from_numpy(kv.astype(kt.numpy_dtype), kt,
+                                     rng.random(n) >= 0.1, capacity=cap,
+                                     device=device)
+            keys = [kcol] + [Scalar(s, dt.FLOAT64 if isinstance(s, float)
+                                    else dt.BOOL if isinstance(s, bool)
+                                    else dt.INT64) for s in scalars]
+            for key in keys:
+                kt = key.dtype
+                cmp_float = m.dtype.key.is_floating or kt.is_floating
+                bits_err(M.map_lookup(m, key, cmp_float),
+                         M._map_lookup_torch(m, key, cmp_float),
+                         f"K27 {mtype} w={w} key {kt}")
+                checks += 1
+    cap = 1 << 20
+    m, _k, _v, live, lk = map_lanes_batch(rng, cap, cap, device)
+    bits_err(M.map_lookup(m, lk, False), M._map_lookup_torch(m, lk, False),
+             "K27 N3(a) batch")
+    checks += 1
+    # per row: the key lanes up to the match (or the length), the matched
+    # value and its flag, the length, validity and key read; the value and
+    # its validity written
+    _keys, _vals, _vv, w = M._halves(m)
+    hit = (_keys == lk.data[:, None]) & (torch.arange(w, device=device)
+                                         < m.lengths[:, None].to(torch.int64))
+    first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1,
+                        m.lengths.to(torch.int64))
+    nbytes = int(first.sum()) * 8 + int(hit.any(dim=1).sum()) * 16 + \
+        cap * (4 + 1 + 8 + 1) + cap * (8 + 1)
+    return {
+        "name": "map_lookup", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (bits)", "rows": cap, "width": w,
+        "timed": "element_at(m, l_orderkey % 4 + 1) over one 2^20-row "
+                 "batch of create_map's 3 entries (N3(a)'s shape)",
+        "ms": time_ms(lambda: M.map_lookup(m, lk, False)),
+        "plain_ms": time_ms(lambda: M._map_lookup_torch(m, lk, False),
+                            iters=5),
+        "bound_ms": bound_ms(nbytes), "library_ms": None,
+        "library": "none: no PyTorch call looks keys up in rows"}
+
+
+def check_k28(device, rng) -> dict:
+    """K28 against its twin, bit for bit: 1-6 pairs of integral and
+    boolean keys and values of every width, duplicate keys (first
+    position, last value), NULL keys (NULL map), NULL values, dead rows.
+    Timed at N3's shape: 3 pairs over one 2^20-row batch."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dt
+    from spark_rapids_tpu_torch.ops import maps as M
+    types = ("bigint", "int", "smallint", "tinyint", "boolean", "date",
+             "timestamp")
+    checks = 0
+    for p in (1, 2, 3, 4, 6):
+        for trial in range(3):
+            cap = 4096
+            n = cap - 321
+            kts = [types[(trial + j) % len(types)] for j in range(p)]
+            vts = [types[(trial + 2 * j + 1) % len(types)] for j in range(p)]
+            keys = []
+            for kt in kts:
+                c = make_column(rng, kt, cap, n, device, null_frac=0.03)
+                if dt.of(kt) != dt.BOOL:
+                    c.data = (c.data % 3).contiguous()
+                keys.append(c)
+            vals = [make_column(rng, vt, cap, n, device, null_frac=0.2)
+                    for vt in vts]
+            live = torch.arange(cap, device=device) < n
+            mt = dt.MAP(keys[0].dtype, vals[0].dtype)
+            tensor_err(M.map_build(keys, vals, live, mt).data,
+                       M._map_build_torch(keys, vals, live, mt).data,
+                       f"K28 {p} pairs {kts}")
+            got = M.map_build(keys, vals, live, mt)
+            want = M._map_build_torch(keys, vals, live, mt)
+            tensor_err(got.lengths, want.lengths, f"K28 {p} lengths")
+            tensor_err(got.validity, want.validity, f"K28 {p} validity")
+            checks += 1
+    cap = 1 << 20
+    m, keys, vals, live, _lk = map_lanes_batch(rng, cap, cap, device)
+    mt = m.dtype
+    tensor_err(m.data, M._map_build_torch(keys, vals, live, mt).data,
+               "K28 N3 batch")
+    checks += 1
+    w3 = m.data.shape[1]
+    # 3 keys and 3 values (8 bytes and a validity byte each) and the live
+    # mask read; the lanes, the length and the validity written
+    nbytes = cap * (6 * 9 + 1) + cap * (w3 * 8 + 4 + 1)
+    return {
+        "name": "map_build", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact", "rows": cap, "lanes": w3,
+        "timed": "create_map(1, a, 2, b, 3, c) over one 2^20-row batch "
+                 "of int64 columns (N3's shape)",
+        "ms": time_ms(lambda: M.map_build(keys, vals, live, mt)),
+        "plain_ms": time_ms(lambda: M._map_build_torch(keys, vals, live,
+                                                       mt), iters=5),
+        "bound_ms": bound_ms(nbytes), "library_ms": None,
+        "library": "none: no PyTorch call builds map rows"}
+
+
 def check_wide_keys(device, rng) -> dict:
     """9 and 17 key columns: K2's blocked lanes against the twin's lanes
     block by block and its order against the one-pass twin's; K3 and K11
@@ -3553,6 +3966,8 @@ PATH_KERNELS = {
                   "segment_bounds", "segment_reduce"),
     "tpcds_q89": ("compact_scan", "sort_key_lanes", "join_probe",
                   "segment_bounds", "segment_reduce"),
+    # N1-N4: split and explode, map build, lookup and explode
+    "nested": ("split_parts", "explode_expand", "map_build", "map_lookup"),
 }
 # the counter of each kind of generated kernel a plan's units carry
 GENERATED_COUNTER = {"K19 fused_stage": "fused_stage",
@@ -3853,6 +4268,184 @@ def windows_phase(tables, oracle, device) -> dict:
             "oracle": "numpy: integers exact, prices in integer cents, "
                       "floats relative 1e-9"}
 
+# ---------------------------------------------------------------------------
+# The nested phase (N1-N4): K25-K28 at the sizes users run them
+# ---------------------------------------------------------------------------
+
+# the kernels each nested query must launch in its cold run
+NESTED_KERNELS = {
+    "N1_word_count": ("split_parts", "explode_expand"),
+    "N2_positions": ("split_parts", "explode_expand"),
+    "N3a_lookup": ("map_build", "map_lookup"),
+    "N3b_unpivot": ("map_build", "explode_expand"),
+    "N3c_size_keys": ("map_build",),
+    "N4_shredded": (),
+    "N4_struct_join": ("join_probe",)}
+N4_ROWS = 1 << 20
+N4_WORDS = ("alpha", "beta", "gamma", "delta", "épsilon", "z")
+
+
+def n4_data(n: int) -> dict:
+    """N4's columns: ``s`` a struct<a: bigint, b: double, c: string> of
+    python dicts (NULL structs and NULL c fields), the numpy arrays they
+    were made from, and ``id``."""
+    rng = np.random.default_rng(97)
+    a = rng.integers(-10 ** 6, 10 ** 6, n)
+    b = rng.integers(-4000, 4000, n) / 4
+    c = np.array(N4_WORDS)[rng.integers(0, len(N4_WORDS), n)]
+    s_null = rng.random(n) < 0.05
+    c_null = rng.random(n) < 0.1
+    structs = [None if sn else {"a": ai, "b": bi, "c": None if cn else ci}
+               for sn, cn, ai, bi, ci in zip(
+                   s_null.tolist(), c_null.tolist(), a.tolist(), b.tolist(),
+                   c.tolist())]
+    return {"id": np.arange(n, dtype=np.int64), "s": structs, "a": a,
+            "b": b, "c": c, "s_null": s_null, "c_null": c_null,
+            "dim_ids": np.sort(rng.choice(n, 4096, replace=False))}
+
+
+def split_counts(values: np.ndarray, sep: str, with_pos: bool) -> dict:
+    """{word or (position, word): rows} of every value split on ``sep``:
+    each distinct value (found through a 64-bit hash of its characters,
+    checked against the values) split once in python, weighted by how
+    often it occurs."""
+    import collections
+    codes = np.ascontiguousarray(values).view(np.uint32).reshape(
+        len(values), -1).astype(np.uint64)
+    mult = np.random.default_rng(3).integers(
+        1, 1 << 62, codes.shape[1], dtype=np.uint64) | np.uint64(1)
+    h = codes @ mult
+    _u, first, inv, cnt = np.unique(h, return_index=True,
+                                    return_inverse=True, return_counts=True)
+    if not np.array_equal(values[first][inv], values):
+        raise AssertionError("split oracle: a hash collision")
+    out = collections.Counter()
+    for v, k in zip(values[first].tolist(), cnt.tolist()):
+        for p, word in enumerate(v.split(sep)):
+            out[(p, word) if with_pos else word] += k
+    return out
+
+
+def nested_oracles(o, p, l, n4) -> dict:
+    """Every nested query's expected rows, sorted."""
+    words = split_counts(o["o_comment"], " ", False)
+    types = split_counts(p["p_type"], " ", True)
+    key = l["l_orderkey"] % 4 + 1
+    cols = (l["l_partkey"], l["l_suppkey"], l["l_orderkey"])
+    v = np.select([key == 1, key == 2, key == 3], cols, 0)
+    n = len(key)
+    n_v = int((key != 4).sum())
+    keep = ~n4["s_null"] & (n4["a"] > 0)
+    groups = {}
+    for c, cn, b in zip(n4["c"][keep].tolist(), n4["c_null"][keep].tolist(),
+                        n4["b"][keep].tolist()):
+        g = groups.setdefault(None if cn else c, [0.0, 0])
+        g[0] += b
+        g[1] += 1
+    structs = n4["s"]
+    out = {
+        "N1_word_count": list(words.items()),
+        "N2_positions": [(pw[0], pw[1], k) for pw, k in types.items()],
+        "N3a_lookup": [(int(v[key != 4].sum()), n_v, n)],
+        "N3b_unpivot": [(j, int(c.sum()), n) for j, c in enumerate(cols)],
+        "N3c_size_keys": [(3 * n, 3, 3, n)],
+        "N4_shredded": [(c, s, k) for c, (s, k) in groups.items()],
+        "N4_struct_join": [(int(i), structs[i])
+                           for i in n4["dim_ids"].tolist()]}
+    return {k: sorted(v, key=repr) for k, v in out.items()}
+
+
+def nested_queries(t, s4, dim) -> dict:
+    """N1-N4 as DataFrames: word count over o_comment, positions over
+    p_type, unpivot of three lineitem keys through a map (lookup keyed by
+    l_orderkey % 4 + 1, datagen's lineitem having no l_linenumber;
+    posexplode of its values; size and the last key), a shredded struct
+    and a whole struct through a broadcast join."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col, lit
+    lineitem = t["lineitem"]
+    m = F.create_map(lit(1), col("l_partkey"), lit(2), col("l_suppkey"),
+                     lit(3), col("l_orderkey"))
+    return {
+        "N1_word_count": t["orders"].select(
+            F.explode(F.split(col("o_comment"), " ")).alias("word"))
+        .groupBy("word").count(),
+        "N2_positions": t["part"].select(
+            "p_partkey", F.posexplode(F.split(col("p_type"), " ")))
+        .groupBy("pos", "col").count(),
+        "N3a_lookup": lineitem.select(
+            F.element_at(m, (col("l_orderkey") % 4) + 1).alias("v"))
+        .agg(F.sum("v"), F.count("v"), F.count("*")),
+        "N3b_unpivot": lineitem.select(F.posexplode(F.map_values(m)))
+        .groupBy("pos").agg(F.sum("col"), F.count("*")),
+        "N3c_size_keys": lineitem.select(
+            F.size(m).alias("n"),
+            F.element_at(F.map_keys(m), -1).alias("last"))
+        .agg(F.sum("n"), F.min("last"), F.max("last"), F.count("last")),
+        "N4_shredded": s4.filter(col("s").getField("a") > 0)
+        .groupBy(col("s").getField("c").alias("c"))
+        .agg(F.sum(col("s").getField("b")).alias("sb"),
+             F.count("*").alias("n")),
+        "N4_struct_join": s4.join(dim, on=col("id") == col("did"))
+        .select(col("id"), col("s"))}
+
+
+def nested_phase(tables, oracle, n4, device) -> dict:
+    """N1-N4 through the session, one cold and two hot runs each, every
+    run's rows held to the numpy oracles; its cold run's kernel launches,
+    its peak device bytes and its plan."""
+    import torch
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.columnar.column import StructColumn
+    session = tables["orders"].session
+    t0 = time.perf_counter()
+    s4 = session.createDataFrame({"id": n4["id"], "s": n4["s"]},
+                                 schema={"s": "struct<a:bigint,b:double,"
+                                              "c:string>"})
+    dim = session.createDataFrame({"did": n4["dim_ids"],
+                                   "w": n4["dim_ids"] * 0.5})
+    n4_build_s = time.perf_counter() - t0
+    runs = {}
+    for name, df in nested_queries(tables, s4, dim).items():
+        want = oracle[name]
+
+        def run():
+            t0 = time.perf_counter()
+            batch = df.collect_batch()
+            rows = batch.rows()
+            seconds = time.perf_counter() - t0
+            check_rows(name, sorted(rows, key=repr), want)
+            return batch, seconds
+        before = native.counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        batch, cold = run()
+        launches = {k: v - before[k] for k, v in native.counts().items()
+                    if v != before[k]}
+        missing = [k for k in NESTED_KERNELS[name] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name} did not launch {missing}")
+        hots = [run()[1] for _ in range(2)]
+        tree = session.last_plan().operator_tree()
+        if name == "N4_struct_join":
+            if not isinstance(batch.columns[1], StructColumn) or \
+                    "TpuBroadcastExchangeExec" not in tree:
+                raise AssertionError(f"{name}: no StructColumn through a "
+                                     f"broadcast join:\n{tree}")
+        if name == "N4_shredded" and "s.a" not in str(session.last_plan()):
+            raise AssertionError(f"{name}: the struct was not shredded")
+        runs[name] = {"rows": len(want), "cold_s": cold, "hot_s": min(hots),
+                      "peak_device_bytes":
+                          torch.cuda.max_memory_allocated(device),
+                      "launches_cold_run": launches,
+                      "plan": tree.splitlines()}
+    return {"phase": "nested", "runs": runs, "n4_rows": N4_ROWS,
+            "n4_create_s": n4_build_s,
+            "note": "cold_s, hot_s (least of 2): the collect's seconds and "
+                    "its rows to python; every run's rows are then checked",
+            "oracle": "numpy and python: counts and integer sums exact, "
+                      "sums of quarter values exact"}
+
+
 def run_query(name: str, tables, cache, oracle, n_rows: int, device
               ) -> dict:
     """One cold and three hot runs of a query through the session, each
@@ -3964,7 +4557,9 @@ def main_data(sf: float) -> tuple:
             "headline": queries.headline_table(HEADLINE_ROWS),
             # TPC-DS: store_sales (2.88 M rows a scale factor) and the
             # dimensions q98 and q89 read
-            **queries.tpcds_tables(sf)}
+            **queries.tpcds_tables(sf),
+            # the nested phase's struct rows (not a table of the main path)
+            "n4": n4_data(N4_ROWS)}
     return data, time.perf_counter() - t0
 
 
@@ -3996,6 +4591,7 @@ class Oracles:
             return rows
         # the longest first
         jobs = {"windows": lambda: window_oracles(o, l),
+                "nested": lambda: nested_oracles(o, p, l, data["n4"]),
                 "q21": lambda: oracle_q21(l, o, s, n),
                 "q1": lambda: oracle_q1(l),
                 "q9": lambda: oracle_q9(l, o, s, ps, n, p),
@@ -4072,7 +4668,7 @@ def main_path(sf: float, data, oracles, device) -> tuple:
     ).getOrCreate()
     tables = {name: session.createDataFrame(
         cols, schema=queries.table_schema(cols))
-        for name, cols in data.items()}
+        for name, cols in data.items() if name != "n4"}
     torch.cuda.reset_peak_memory_stats(device)
     lines, k15_shapes = [], {}
     with recording(J, "cross_expand") as calls:
@@ -4106,6 +4702,19 @@ def main_path(sf: float, data, oracles, device) -> tuple:
         line["phase_s"] = time.perf_counter() - t0
         emit(line)
         lines.append(line)
+        before = native.counts()
+        t0 = time.perf_counter()
+        line = nested_phase(tables, oracles["nested"], data["n4"], device)
+        line["phase_s"] = time.perf_counter() - t0
+        line["launches"] = {k: v - before[k]
+                            for k, v in native.counts().items()
+                            if v != before[k]}
+        emit(line)
+        lines.append(line)
+        missing = [k for k in PATH_KERNELS["nested"]
+                   if line["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"nested did not launch {missing}")
         launches = native.counts()
         host_passes = native.host_counts()
     peak = max(line.get("peak_device_bytes", 0) for line in lines)
@@ -4542,6 +5151,10 @@ REPLACES = {
     "segmented_scan": "spark_rapids_tpu/ops/window.py:213, 264, 274",
     "frame_bounds": "spark_rapids_tpu/ops/window.py:309, 319, 330",
     "frame_aggregate": "spark_rapids_tpu/ops/window.py:368, 373",
+    "explode_expand": "spark_rapids_tpu/ops/arrays.py:146, 165",
+    "split_parts": "spark_rapids_tpu/ops/arrays.py:189, 200",
+    "map_lookup": "spark_rapids_tpu/ops/maps.py:140",
+    "map_build": "spark_rapids_tpu/ops/maps.py:74",
 }
 
 
@@ -4611,7 +5224,7 @@ def main() -> int:
                   check_k10, check_k11, check_k12, check_k13, check_k14,
                   check_k15, check_k16, check_k17, check_k18, check_locate,
                   check_k19, check_k20, check_k21, check_k22, check_k23,
-                  check_k24):
+                  check_k24, check_k25, check_k26, check_k27, check_k28):
         if args.only and check.__name__ not in args.only.split(","):
             continue
         t0 = time.perf_counter()

@@ -2,7 +2,7 @@
 ``Column``), ported from spark_rapids_tpu/api/column.py for the main-path
 operators (with ``%``, unary ``-`` and ``eqNullSafe``), ``isin``, the
 string predicates ``contains``, ``startswith``, ``endswith`` and ``like``,
-``substr``, ``cast``, ``over`` (window functions) and the
+``substr``, ``cast``, ``over`` (window functions), ``getField`` and the
 ``when(...).otherwise(...)`` chain."""
 
 from __future__ import annotations
@@ -78,6 +78,12 @@ class Col:
 
     def substr(self, start, length):
         return Col(st.Substring(self.expr, _unwrap(start), _unwrap(length)))
+
+    def getField(self, name: str) -> "Col":
+        """struct.field (GetStructField; the planner shreds it into a flat
+        scan column where it can)."""
+        from ..ops.structs import GetField
+        return Col(GetField(self.expr, name))
 
     def alias(self, name: str) -> "Col":
         return Col(ex.Alias(self.expr, name))

@@ -1,8 +1,9 @@
 """DataFrame API (the pyspark surface over the logical plan builder), ported
 from spark_rapids_tpu/api/dataframe.py for the main-path operators: filter,
-select, withColumn (both with window functions), withColumnRenamed, join,
-crossJoin, groupBy().agg, agg, orderBy, limit, repartition, coalesce,
-collect and collect_batch."""
+select, withColumn (both with window functions; select also with one
+explode or posexplode), withColumnRenamed, join, crossJoin,
+groupBy().agg, groupBy().count, agg, orderBy, limit, repartition,
+coalesce, collect and collect_batch."""
 
 from __future__ import annotations
 
@@ -51,6 +52,43 @@ class DataFrame:
         return self._project([_to_expr(c) for c in cols])
 
     def _project(self, exprs: List[ex.Expression]) -> "DataFrame":
+        lifted = self._lift_generator(exprs)
+        if lifted is not None:
+            return lifted
+        return self._project_windows(exprs)
+
+    def _lift_generator(self, exprs: List[ex.Expression]
+                        ) -> Optional["DataFrame"]:
+        """explode/posexplode in a select lifts into a Generate node under
+        the projection (Catalyst's ExtractGenerator): the projection reads
+        its ``pos`` and ``col`` (or the alias) columns."""
+        from ..ops import arrays as ar_ops
+
+        def inner(e):
+            return e.children[0] if isinstance(e, ex.Alias) else e
+
+        gen_idx = [i for i, e in enumerate(exprs)
+                   if isinstance(inner(e), ar_ops.Explode)]
+        if not gen_idx:
+            return None
+        if len(gen_idx) > 1:
+            raise ValueError("only one generator per select (Spark rule)")
+        i = gen_idx[0]
+        g_expr = inner(exprs[i])
+        col_name = exprs[i].alias if isinstance(exprs[i], ex.Alias) \
+            else "col"
+        g = lp.Generate(self._plan, g_expr, col_name=col_name)
+        out: List[ex.Expression] = []
+        for j, e in enumerate(exprs):
+            if j == i:
+                if g_expr.pos:
+                    out.append(ex.ColumnRef("pos"))
+                out.append(ex.ColumnRef(col_name))
+            else:
+                out.append(e)
+        return self._df(g)._project_windows(out)
+
+    def _project_windows(self, exprs: List[ex.Expression]) -> "DataFrame":
         """A projection; its ``Col.over`` window expressions lift into a
         Window node below it (Catalyst's ExtractWindowExpressions): each
         becomes a generated column ``__w<i>`` of an lp.Window, and the
@@ -166,3 +204,8 @@ class GroupedData:
         agg_exprs = [_unwrap(a) for a in aggs]
         out: List[ex.Expression] = list(self.grouping) + agg_exprs
         return self.df._df(lp.Aggregate(self.df._plan, self.grouping, out))
+
+    def count(self) -> DataFrame:
+        """One ``count`` column a group."""
+        return self.agg(Col(ex.Alias(
+            lp.AggregateExpression("count_star", None), "count")))

@@ -1,6 +1,7 @@
 """pyspark.sql.functions analog: the expression constructors of the main
-path, the null, math, date, string and window functions and the DISTINCT
-aggregates, ported from spark_rapids_tpu/api/functions.py."""
+path, the null, math, date, string and window functions, the DISTINCT
+aggregates and the array, map and generator functions, ported from
+spark_rapids_tpu/api/functions.py."""
 
 from __future__ import annotations
 
@@ -323,3 +324,66 @@ def lag(c, offset: int = 1, default=None) -> Col:
     from ..ops.window import Lag
     return Col(Lag(_unwrap(col(c) if isinstance(c, str) else c), offset,
                    default))
+
+
+# -- arrays, maps and generators -----------------------------------------
+
+def explode(c) -> Col:
+    from ..ops import arrays as ar_ops
+    return Col(ar_ops.Explode(_unwrap(c)))
+
+
+def posexplode(c) -> Col:
+    from ..ops import arrays as ar_ops
+    return Col(ar_ops.Explode(_unwrap(c), pos=True))
+
+
+def split(c, delimiter: str) -> Col:
+    from ..ops import arrays as ar_ops
+    return Col(ar_ops.StringSplit(_unwrap(c), delimiter))
+
+
+def size(c) -> Col:
+    from ..ops import arrays as ar_ops
+    return Col(ar_ops.Size(_unwrap(c)))
+
+
+def _key_literal(v) -> ex.Expression:
+    import numpy as np
+    if isinstance(v, np.integer):
+        v = int(v)
+    elif isinstance(v, np.floating):
+        v = float(v)
+    elif isinstance(v, np.bool_):
+        v = bool(v)
+    return ex.Literal(v)
+
+
+def get_item(c, index) -> Col:
+    """c[index]: an array's 0-based element or a map's value."""
+    from ..ops import maps as mp_ops
+    key = _unwrap(index) if isinstance(index, Col) else _key_literal(index)
+    return Col(mp_ops.GetItem(_unwrap(c), key))
+
+
+def element_at(c, key) -> Col:
+    """element_at(map, key) / element_at(array, 1-based index; negative
+    from the end)."""
+    from ..ops import maps as mp_ops
+    k = _unwrap(key) if isinstance(key, Col) else _key_literal(key)
+    return Col(mp_ops.GetItem(_unwrap(c), k, one_based=True))
+
+
+def create_map(*cols) -> Col:
+    from ..ops import maps as mp_ops
+    return Col(mp_ops.CreateMap(*[_unwrap(c) for c in cols]))
+
+
+def map_keys(c) -> Col:
+    from ..ops import maps as mp_ops
+    return Col(mp_ops.MapKeys(_unwrap(c)))
+
+
+def map_values(c) -> Col:
+    from ..ops import maps as mp_ops
+    return Col(mp_ops.MapValues(_unwrap(c)))

@@ -7,7 +7,9 @@ The session runs on one torch device, from ``spark.rapids.torch.device``
 never moves to the CPU by itself. The main path takes a dict of numpy
 arrays (the masked entries of a masked array are NULL); pyarrow tables
 and pandas frames are accepted too, with pyarrow or pandas imported only
-for them.
+for them. A column of python lists or dicts (or an arrow list, map or
+struct column) is an ARRAY, MAP or STRUCT column, converted once to its
+device layout on the host.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from .. import config as cfg
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
+from ..columnar.column import HostNested, is_nested
 from ..plan import logical as lp
 from ..plan import physical as ph
 from ..plan.overrides import Overrides
@@ -87,6 +90,9 @@ class TpuSession:
         for name, values in columns.items():
             t = want.get(name) or _infer_dtype(values)
             fields.append(dt.Field(name, t))
+            if is_nested(t):
+                columns[name] = HostNested.from_pylist(values, t)
+                continue
             if t == dt.STRING and values.dtype.kind == "O":
                 nulls = np.array([v is None for v in values], np.bool_)
                 if nulls.any():
@@ -144,10 +150,52 @@ def _schema_types(schema: SchemaLike) -> Dict[str, dt.DType]:
     return {name: dt.of(t) for name, t in items}
 
 
-def _infer_dtype(values: np.ndarray) -> dt.DType:
+def _infer_dtype(values) -> dt.DType:
+    if isinstance(values, list):
+        return _infer_nested(values)
     if values.dtype.kind in ("U", "S", "O"):
         return dt.STRING
     return dt.of(values.dtype)
+
+
+def _is_nested_values(values) -> bool:
+    return isinstance(values, (list, tuple)) and any(
+        isinstance(v, (dict, list, tuple)) for v in values)
+
+
+def _infer_nested(values: list) -> dt.DType:
+    """The reference's inference (columnar/batch.py _infer_dtype): dicts
+    are MAPs and lists ARRAYs, their key and value types widened across
+    every row (an empty-map-only column is map<bigint,bigint>)."""
+    if any(isinstance(v, dict) for v in values):
+        ks = [k for d in values if isinstance(d, dict) for k in d]
+        vs = [x for d in values if isinstance(d, dict) for x in d.values()
+              if x is not None]
+        if not ks:
+            return dt.MAP(dt.INT64, dt.INT64)
+        return dt.MAP(_widen_across(ks), _widen_across(vs or [0]))
+    elems = [x for lst in values if isinstance(lst, (list, tuple))
+             for x in lst if x is not None]
+    if any(isinstance(x, str) for x in elems):
+        return dt.ARRAY_STRING
+    return dt.ARRAY(_widen_across(elems or [0]))
+
+
+def _widen_across(values) -> dt.DType:
+    """Widest primitive type across python values: a float widens ints to
+    double, a string wins outright."""
+    out = None
+    for v in values:
+        t = (dt.BOOL if isinstance(v, (bool, np.bool_)) else
+             dt.INT64 if isinstance(v, (int, np.integer)) else
+             dt.FLOAT64 if isinstance(v, (float, np.floating)) else dt.STRING)
+        if out is None or out == t:
+            out = t
+        elif {out, t} == {dt.INT64, dt.FLOAT64}:
+            out = dt.FLOAT64
+        else:
+            out = dt.STRING if dt.STRING in (out, t) else dt.FLOAT64
+    return out or dt.INT64
 
 
 def _columns_of(data) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
@@ -160,6 +208,9 @@ def _columns_of(data) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
             if isinstance(values, np.ma.MaskedArray):   # masked = NULL
                 validity[name] = ~np.ma.getmaskarray(values)
                 cols[name] = values.filled(0)
+                continue
+            if _is_nested_values(values):    # lists / dicts: nested rows
+                cols[name] = list(values)
                 continue
             arr = np.asarray(values)
             if arr.dtype.kind == "O" and any(v is None for v in arr) and \
@@ -191,6 +242,9 @@ def _columns_of(data) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray],
         for name in data.column_names:
             arr = data.column(name).combine_chunks()
             types[name] = dt.from_arrow(arr.type)
+            if is_nested(types[name]):
+                cols[name] = arr.to_pylist()
+                continue
             if pa.types.is_date32(arr.type):
                 arr = arr.view(pa.int32())
             if pa.types.is_string(arr.type) or \

@@ -8,7 +8,9 @@ The scan upload (:meth:`ColumnarBatch.upload`) packs every column's padded
 host arrays into one pinned host buffer and moves it with one
 ``non_blocking`` copy, then carves the device arrays out as views. It
 stands in for the JAX package's packed staging upload (batch.py
-``_pack_staging`` / ``_upload_packed``).
+``_pack_staging`` / ``_upload_packed``). Nested columns ride the same
+buffer (the reference uploads them apart): their flat arrays are plain
+host arrays like any other.
 """
 
 from __future__ import annotations
@@ -102,9 +104,9 @@ class ColumnarBatch:
         staging buffer, one non_blocking copy, then typed views of it."""
         device = torch.device(device)
         if device.type != "cuda":
-            cols = [Column(dtype, *[torch.from_numpy(np.ascontiguousarray(a))
-                                    .to(device) for a in arrs])
-                    for dtype, arrs in hosts]
+            cols = [build_column(dtype, [
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in arrs])[0] for dtype, arrs in hosts]
             return ColumnarBatch(schema, cols, num_rows)
         spec = []
         pos = 0
@@ -127,7 +129,7 @@ class ColumnarBatch:
                 k += 1
                 seg = dev[off:off + a.nbytes]
                 tensors.append(seg.view(torch_dtype(a.dtype)).view(a.shape))
-            cols.append(Column(dtype, *tensors))
+            cols.append(build_column(dtype, tensors)[0])
         return ColumnarBatch(schema, cols, num_rows)
 
     @staticmethod

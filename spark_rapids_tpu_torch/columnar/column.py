@@ -8,7 +8,14 @@ compared with its reference:
 * NULLs are a bool validity tensor (True = valid); padding rows are invalid
   and their data zeroed;
 * strings are ``uint8[cap, W]`` byte matrices, ``W`` from
-  :func:`string_width_bucket` (minimum 8), plus ``int32[cap]`` lengths.
+  :func:`string_width_bucket` (minimum 8), plus ``int32[cap]`` lengths;
+* ARRAY<primitive> is an element matrix ``data[cap, W]`` of the element's
+  dtype, ``int32[cap]`` lengths and an element validity ``bool[cap, W]``;
+  MAP<K, V> of primitives is one ``int64[cap, 3W]`` matrix of interleaved
+  ``[key bits, value bits, value valid]`` lanes plus the entry counts;
+  STRUCT is a :class:`StructColumn`: a validity and one column a field.
+  A nested type with no device layout (a string key or element) raises
+  NotImplementedError: it needs the host engine (ROADMAP A6).
 
 Construction goes from numpy (including ``<U``/``S``/object string arrays)
 with no pyarrow. Every tensor is allocated with an explicit device.
@@ -136,25 +143,162 @@ def _is_string_array(values: np.ndarray) -> bool:
     return values.dtype.kind in ("U", "S", "O")
 
 
+def _bits_from_values(vals, dtype: dt.DType) -> np.ndarray:
+    """Logical values -> int64 bit patterns for the MAP layout: integral,
+    bool, date and timestamp store the int64 value; floats store the
+    float64 bit pattern (f32 widens exactly)."""
+    if dtype.is_floating:
+        return np.asarray(vals, np.float64).view(np.int64)
+    return np.asarray([int(v) for v in vals], np.int64)
+
+
+def _values_from_bits(bits: np.ndarray, dtype: dt.DType) -> np.ndarray:
+    if dtype.is_floating:
+        return bits.view(np.float64).astype(dtype.numpy_dtype)
+    return bits.astype(dtype.numpy_dtype)
+
+
+def device_capable(t: dt.DType) -> bool:
+    """Types with a device layout: primitives and strings, ARRAY and MAP
+    of primitives, STRUCT of such fields (the reference's type gate)."""
+    if dt.is_struct(t):
+        return all(device_capable(ft) for _, ft in t.fields)
+    if dt.is_array(t) or dt.is_map(t):
+        return t.numpy_dtype is not None
+    return True
+
+
+def check_device_capable(t: dt.DType) -> None:
+    if not device_capable(t):
+        raise NotImplementedError(
+            f"{t} has no device layout: its values need the host engine "
+            "(ROADMAP A6), which the PyTorch engine does not have yet")
+
+
+def is_nested(t: dt.DType) -> bool:
+    return dt.is_array(t) or dt.is_map(t) or dt.is_struct(t)
+
+
+class HostNested:
+    """A nested (or pre-encoded string) column's rows on the host in the
+    device layout: the flat arrays :meth:`Column.arrays` holds, ``n`` rows
+    each and no padding. A scan slices rows and pads them to a batch's
+    capacity without converting python values again."""
+
+    def __init__(self, dtype: dt.DType, arrays: Sequence[np.ndarray]):
+        self.dtype = dtype
+        self.arrays = list(arrays)
+
+    def __len__(self) -> int:
+        return len(self.arrays[0])
+
+    def __getitem__(self, rows: slice) -> "HostNested":
+        return HostNested(self.dtype, [a[rows] for a in self.arrays])
+
+    @staticmethod
+    def from_pylist(values: Sequence[Any], dtype: dt.DType,
+                    width: Optional[int] = None) -> "HostNested":
+        """Python values (lists for ARRAY, dicts or (key, value) pairs for
+        MAP, dicts for STRUCT; None = NULL) in the device layout."""
+        check_device_capable(dtype)
+        values = list(values)
+        n = len(values)
+        valid = np.array([v is not None for v in values], np.bool_)
+        if dt.is_struct(dtype):
+            arrays = [valid]
+            for fname, ftype in dtype.fields:
+                fvals = [None if v is None else
+                         (v.get(fname) if isinstance(v, dict)
+                          else getattr(v, fname)) for v in values]
+                arrays.extend(_host_child(fvals, ftype))
+            return HostNested(dtype, arrays)
+        if dt.is_map(dtype):
+            dicts = [dict(v) if v is not None else None for v in values]
+            lens = np.array([len(d) if d is not None else 0 for d in dicts],
+                            np.int32)
+            w = width or bucket(int(lens.max(initial=0)), 4)
+            mat = np.zeros((n, 3 * w), np.int64)
+            rows, lanes = _entry_slots(lens)
+            ks = [k for d in dicts if d is not None for k in d]
+            vs = [x for d in dicts if d is not None for x in d.values()]
+            vv = np.array([x is not None for x in vs], np.bool_)
+            if ks:
+                mat[rows, 3 * lanes] = _bits_from_values(ks, dtype.key)
+                mat[rows, 3 * lanes + 1] = np.where(vv, _bits_from_values(
+                    [x if x is not None else 0 for x in vs], dtype.element),
+                    0)
+                mat[rows, 3 * lanes + 2] = vv
+            return HostNested(dtype, [mat, valid, lens])
+        # ARRAY<primitive>
+        lens = np.array([len(v) if v is not None else 0 for v in values],
+                        np.int32)
+        w = width or bucket(int(lens.max(initial=0)), 4)
+        mat = np.zeros((n, w), dtype.numpy_dtype)
+        evalid = np.zeros((n, w), np.bool_)
+        rows, lanes = _entry_slots(lens)
+        flat = [e for v in values if v is not None for e in v]
+        ev = np.array([e is not None for e in flat], np.bool_)
+        if flat:
+            mat[rows, lanes] = np.asarray(
+                [e if e is not None else 0 for e in flat], dtype.numpy_dtype)
+            evalid[rows, lanes] = ev
+        return HostNested(dtype, [mat, valid, lens, evalid])
+
+
+def _entry_slots(lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(row, lane) of every entry of rows holding ``lens`` entries."""
+    rows = np.repeat(np.arange(len(lens)), lens)
+    starts = np.cumsum(lens) - lens
+    lanes = np.arange(int(lens.sum())) - np.repeat(starts, lens)
+    return rows, lanes
+
+
+def _host_child(values: List[Any], t: dt.DType) -> List[np.ndarray]:
+    """A struct field's unpadded flat arrays from its python values."""
+    if is_nested(t):
+        return HostNested.from_pylist(values, t).arrays
+    valid = np.array([v is not None for v in values], np.bool_)
+    if t == dt.STRING:
+        vals = np.empty(len(values), dtype=object)
+        vals[:] = values
+        mat, lens, valid = encode_strings(vals, valid)
+        w = string_width_bucket(mat.shape[1])
+        return [np.pad(mat, ((0, 0), (0, w - mat.shape[1]))), valid, lens]
+    return [np.array([v if v is not None else 0 for v in values],
+                     t.numpy_dtype), valid]
+
+
+def _pad_rows(a: np.ndarray, cap: int) -> np.ndarray:
+    out = np.zeros((cap,) + a.shape[1:], a.dtype)
+    out[:len(a)] = a
+    return out
+
+
 class Column:
     """A device column: storage tensors sized to a capacity >= the batch's
     row count.
 
     numeric/bool/date/timestamp: ``data[cap]`` of the type's storage dtype
     string:                      ``data[cap, W] uint8`` + ``lengths[cap] int32``
-    Both carry ``validity[cap] bool``.
+    array:                       ``data[cap, W]`` + ``lengths`` +
+                                 ``elem_validity[cap, W] bool``
+    map:                         ``data[cap, 3W] int64`` + ``lengths``
+    All carry ``validity[cap] bool``.
     """
 
-    __slots__ = ("dtype", "data", "validity", "lengths")
+    __slots__ = ("dtype", "data", "validity", "lengths", "elem_validity")
 
     def __init__(self, dtype: dt.DType, data: torch.Tensor,
-                 validity: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+                 validity: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                 elem_validity: Optional[torch.Tensor] = None):
         if dtype.var_width:
-            if dtype != dt.STRING:
-                raise NotImplementedError(
-                    f"{dtype} columns are not ported yet")
+            if dt.is_struct(dtype):
+                raise TypeError("a STRUCT column is a StructColumn")
+            check_device_capable(dtype)
             if lengths is None or data.dim() != 2:
-                raise ValueError("string column needs lengths + 2D data")
+                raise ValueError(f"{dtype} column needs lengths + 2D data")
+            if dt.is_array(dtype) and elem_validity is None:
+                raise ValueError("an ARRAY column needs its element validity")
         elif data.dim() != 1:
             raise ValueError(
                 f"fixed-width column must be 1D, got {data.dim()}D")
@@ -162,6 +306,7 @@ class Column:
         self.data = data
         self.validity = validity
         self.lengths = lengths
+        self.elem_validity = elem_validity
 
     # -- shape -----------------------------------------------------------
     @property
@@ -177,12 +322,16 @@ class Column:
         total += self.validity.numel()
         if self.lengths is not None:
             total += self.lengths.numel() * 4
+        if self.elem_validity is not None:
+            total += self.elem_validity.numel()
         return int(total)
 
     def arrays(self) -> List[torch.Tensor]:
         out = [self.data, self.validity]
         if self.lengths is not None:
             out.append(self.lengths)
+        if self.elem_validity is not None:
+            out.append(self.elem_validity)
         return out
 
     # -- construction ----------------------------------------------------
@@ -193,7 +342,15 @@ class Column:
                     width: Optional[int] = None
                     ) -> Tuple[dt.DType, List[np.ndarray]]:
         """numpy values -> (dtype, padded host arrays [data, validity(,
-        lengths)]) in the device layout, with no device work."""
+        lengths)]) in the device layout, with no device work. A
+        :class:`HostNested` (a nested column, or a string column already
+        encoded) is padded to the capacity as it is."""
+        if dtype is not None and is_nested(dtype) and \
+                not isinstance(values, HostNested):
+            values = HostNested.from_pylist(values, dtype, width)
+        if isinstance(values, HostNested):
+            cap = capacity or bucket(len(values))
+            return values.dtype, [_pad_rows(a, cap) for a in values.arrays]
         values = np.asarray(values)
         n = len(values)
         if dtype is None:
@@ -213,8 +370,7 @@ class Column:
             valid_full = np.zeros(cap, np.bool_)
             valid_full[:n] = valid
             return dt.STRING, [data, valid_full, lens_full]
-        if dtype.var_width:
-            raise NotImplementedError(f"{dtype} columns are not ported yet")
+        check_device_capable(dtype)
         valid = np.ones(n, np.bool_) if validity is None else \
             np.asarray(validity, np.bool_)
         storage = np.zeros(cap, dtype.numpy_dtype)
@@ -240,8 +396,14 @@ class Column:
                     capacity: Optional[int] = None, device="cpu",
                     width: Optional[int] = None) -> "Column":
         """Host values (None = NULL) -> a column on ``device``: the upload
-        of a host pass's result (the reference's Column.from_pylist for
-        strings and fixed-width types)."""
+        of a host pass's result, or a nested column built from python
+        lists and dicts (the reference's Column.from_pylist; a STRUCT
+        gives a :class:`StructColumn`)."""
+        if is_nested(dtype):
+            host = HostNested.from_pylist(values, dtype, width)
+            _t, arrays = Column.host_arrays(host, dtype, capacity=capacity)
+            return build_column(dtype, [torch.from_numpy(a).to(device)
+                                        for a in arrays])[0]
         valid = np.array([v is not None for v in values], dtype=np.bool_)
         if dtype == dt.STRING:
             vals = np.empty(len(values), dtype=object)
@@ -256,11 +418,20 @@ class Column:
     def full_null(dtype: dt.DType, capacity: int, device,
                   width: int = MIN_STRING_WIDTH) -> "Column":
         valid = torch.zeros(capacity, dtype=torch.bool, device=device)
-        if dtype == dt.STRING:
-            return Column(dtype, torch.zeros((capacity, width),
-                                             dtype=torch.uint8, device=device),
+        if dt.is_struct(dtype):
+            return StructColumn(dtype, [Column.full_null(t, capacity, device)
+                                        for _, t in dtype.fields], valid)
+        if dtype.var_width:
+            check_device_capable(dtype)
+            w = 3 * width if dt.is_map(dtype) else width
+            return Column(dtype, torch.zeros((capacity, w),
+                                             dtype=storage_dtype(dtype),
+                                             device=device),
                           valid, torch.zeros(capacity, dtype=torch.int32,
-                                             device=device))
+                                             device=device),
+                          torch.zeros((capacity, width), dtype=torch.bool,
+                                      device=device)
+                          if dt.is_array(dtype) else None)
         if dtype == dt.NULLTYPE:
             dtype = dt.BOOL
         return Column(dtype, torch.zeros(capacity, dtype=storage_dtype(dtype),
@@ -296,6 +467,30 @@ class Column:
     # -- host extraction -------------------------------------------------
     def to_pylist(self, num_rows: int) -> List[Any]:
         valid = self.validity[:num_rows].cpu().numpy()
+        if dt.is_map(self.dtype):
+            mat = self.data[:num_rows].cpu().numpy()
+            lens = self.lengths[:num_rows].cpu().numpy()
+            kt, vt = self.dtype.key, self.dtype.element
+            out: List[Any] = []
+            for i in range(num_rows):
+                if not valid[i]:
+                    out.append(None)
+                    continue
+                ln = int(lens[i])
+                ks = _values_from_bits(mat[i, 0:3 * ln:3], kt)
+                vs = _values_from_bits(mat[i, 1:3 * ln + 1:3], vt)
+                vv = mat[i, 2:3 * ln + 2:3] != 0
+                out.append({_py(kt, k): (_py(vt, v) if ok else None)
+                            for k, v, ok in zip(ks, vs, vv)})
+            return out
+        if dt.is_array(self.dtype):
+            mat = self.data[:num_rows].cpu().numpy()
+            lens = self.lengths[:num_rows].cpu().numpy()
+            ev = self.elem_validity[:num_rows].cpu().numpy()
+            elem = self.dtype.element
+            return [[_py(elem, x) if ev[i, j] else None
+                     for j, x in enumerate(mat[i, :lens[i]])]
+                    if valid[i] else None for i in range(num_rows)]
         if self.dtype == dt.STRING:
             mat = self.data[:num_rows].cpu().numpy()
             lens = self.lengths[:num_rows].cpu().numpy()
@@ -313,14 +508,88 @@ class Column:
         return f"Column({self.dtype}, cap={self.capacity}{extra})"
 
 
+def _py(t: dt.DType, v):
+    """A numpy scalar of type ``t`` as the python value collect returns."""
+    if t == dt.BOOL:
+        return bool(v)
+    if t.is_floating:
+        return float(v)
+    return int(v)
+
+
+class StructColumn(Column):
+    """Device STRUCT layout: a struct-level validity and one column per
+    field (children are NULL where the struct is). Row-reordering kernels
+    (gather, concat) recurse into the children; the flat-array form is
+    ``[validity, *children's arrays]``, with an arity that is a function of
+    the type (:func:`column_arity`)."""
+
+    __slots__ = ("children",)
+
+    def __init__(self, dtype: dt.DType, children: List[Column],
+                 validity: torch.Tensor):
+        self.dtype = dtype
+        self.children = list(children)
+        self.validity = validity
+        self.data = None
+        self.lengths = None
+        self.elem_validity = None
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    def field(self, name: str) -> Column:
+        return self.children[[n for n, _ in self.dtype.fields].index(name)]
+
+    def device_size_bytes(self) -> int:
+        return int(self.validity.numel()) + \
+            sum(c.device_size_bytes() for c in self.children)
+
+    def arrays(self) -> List[torch.Tensor]:
+        out = [self.validity]
+        for c in self.children:
+            out.extend(c.arrays())
+        return out
+
+    def to_pylist(self, num_rows: int) -> List[Any]:
+        valid = self.validity[:num_rows].cpu().numpy()
+        kids = [c.to_pylist(num_rows) for c in self.children]
+        names = [n for n, _ in self.dtype.fields]
+        return [dict(zip(names, vals)) if ok else None
+                for ok, vals in zip(valid, zip(*kids))]
+
+    def __repr__(self):
+        return f"StructColumn({self.dtype}, cap={self.capacity})"
+
+
 def column_arity(t: dt.DType) -> int:
-    """Number of flat storage arrays a column of type ``t`` contributes."""
+    """Number of flat storage arrays a column of type ``t`` contributes: a
+    function of the type alone."""
+    if dt.is_struct(t):
+        return 1 + sum(column_arity(ft) for _, ft in t.fields)
+    if dt.is_array(t):
+        return 4                      # data, validity, lengths, elem valid
     return 3 if t.var_width else 2
 
 
 def build_column(t: dt.DType, arrays: Sequence[Any], i: int = 0):
     """(column, next index): rebuild one column from the flat-array form
     starting at ``arrays[i]`` (inverse of ``Column.arrays()``)."""
+    if dt.is_struct(t):
+        validity = arrays[i]
+        i += 1
+        children = []
+        for _, ft in t.fields:
+            c, i = build_column(ft, arrays, i)
+            children.append(c)
+        return StructColumn(t, children, validity), i
+    if dt.is_array(t):
+        return Column(t, *arrays[i:i + 4]), i + 4
     if t.var_width:
         return Column(t, arrays[i], arrays[i + 1], arrays[i + 2]), i + 3
     return Column(t, arrays[i], arrays[i + 1]), i + 2

@@ -51,7 +51,8 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "build_matched", "cross_expand", "string_map", "string_slice",
            "string_place", "find_pattern_locate", "masked_reduce_fold",
            "fused_stage", "fused_reduce", "window_rank", "window_offset",
-           "segmented_scan", "frame_bounds", "frame_aggregate")
+           "segmented_scan", "frame_bounds", "frame_aggregate",
+           "explode_expand", "split_parts", "map_lookup", "map_build")
 LIBRARY_OF = {"join_expand_outer": "join_expand",
               "find_pattern_locate": "find_pattern",
               "masked_reduce_fold": "masked_reduce",
@@ -188,6 +189,26 @@ _SIGNATURES = {
         "frame_aggregate": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                                  _P, _P, _I, _P, _P, _P]),
         "frame_aggregate_block_rows": (_I, []),
+    },
+    "explode_expand": {
+        "explode_scratch_bytes": (_L, [_L]),
+        "explode_scan": (_I, [_P, _P, _P, _L, _P, _P, _P]),
+        "explode_expand": (_I, [_P, _P, _P, _L, _L, _P, _P, _P, _L, _I, _P,
+                                _P, _P, _P, _P, _P]),
+    },
+    "split_parts": {
+        "split_count": (_I, [_P, _P, _P, _L, _L, _I, _P, _P]),
+        "split_place": (_I, [_P, _P, _L, _I, _P, _P, _L, _P, _P, _P, _P,
+                             _P]),
+    },
+    "map_lookup": {
+        "map_lookup": (_I, [_P, _P, _P, _L, _I, _I, _P, _P, _I, _L,
+                            ctypes.c_double, _I, _I, _P, _P, _P]),
+    },
+    "map_build": {
+        "map_build_max_pairs": (_I, []),
+        "map_build": (_I, [_PP, _PP, _PI, _PP, _PP, _PI, _I, _P, _L, _I, _P,
+                           _P, _P, _P]),
     },
 }
 

@@ -19,7 +19,8 @@ that computes the same result:
 A wrapper runs its twin only for tensors on the CPU. For a CUDA tensor it
 launches its kernel or raises. Gather, concat and slice stay torch
 indexing and ``torch.cat`` (data movement one torch op already does as a
-single kernel).
+single kernel); they carry an ARRAY's element validity and recurse into a
+STRUCT's fields.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from .. import native
 from ..columnar import dtypes as dt
-from ..columnar.column import Column
+from ..columnar.column import Column, StructColumn
 
 _MIN_I64 = -(1 << 63)
 _LANE_BITS = 63
@@ -296,21 +297,29 @@ def lanes_order(lanes: torch.Tensor) -> torch.Tensor:
 def gather_column(col: Column, indices: torch.Tensor,
                   out_valid: Optional[torch.Tensor] = None) -> Column:
     """Row gather; ``out_valid`` also masks output rows (False: NULL and
-    zeroed)."""
+    zeroed). A struct gathers its children with the same indices."""
     validity = col.validity[indices]
-    data = col.data[indices]
-    lengths = col.lengths[indices] if col.lengths is not None else None
     if out_valid is not None:
         validity = validity & out_valid
+    if isinstance(col, StructColumn):
+        return StructColumn(col.dtype, [gather_column(c, indices, out_valid)
+                                        for c in col.children], validity)
+    data = col.data[indices]
+    lengths = col.lengths[indices] if col.lengths is not None else None
+    elem_valid = col.elem_validity[indices] \
+        if col.elem_validity is not None else None
+    if out_valid is not None:
         zero = torch.zeros((), dtype=data.dtype, device=data.device)
         if col.dtype.var_width:
             data = torch.where(out_valid[:, None], data, zero)
             lengths = torch.where(out_valid, lengths,
                                   torch.zeros((), dtype=torch.int32,
                                               device=data.device))
+            if elem_valid is not None:
+                elem_valid = elem_valid & out_valid[:, None]
         else:
             data = torch.where(out_valid, data, zero)
-    return Column(col.dtype, data, validity, lengths)
+    return Column(col.dtype, data, validity, lengths, elem_valid)
 
 
 def compaction_indices(keep: torch.Tensor
@@ -379,29 +388,40 @@ def rebucket_column(col: Column, num_rows: int, new_capacity: int) -> Column:
 def concat_columns(cols: Sequence[Column], counts: Sequence[int],
                    out_capacity: int) -> Column:
     """Concatenate same-dtype columns (host-known counts) into one column
-    of ``out_capacity`` rows with zeroed, invalid padding."""
+    of ``out_capacity`` rows with zeroed, invalid padding. Var-width
+    columns are right-padded to the widest in their own dtype (a map's
+    interleaved lanes pad by whole empty entries); structs concatenate
+    field by field."""
     dtype = cols[0].dtype
     dev = cols[0].device
     pad = out_capacity - sum(counts)
-    valids = [c.validity[:n] for c, n in zip(cols, counts)]
-    if pad:
-        valids.append(torch.zeros(pad, dtype=torch.bool, device=dev))
+
+    def cat(parts: List[torch.Tensor]) -> torch.Tensor:
+        if pad:
+            parts.append(torch.zeros((pad,) + tuple(parts[0].shape[1:]),
+                                     dtype=parts[0].dtype, device=dev))
+        return torch.cat(parts)
+
+    validity = cat([c.validity[:n] for c, n in zip(cols, counts)])
+    if isinstance(cols[0], StructColumn):
+        return StructColumn(dtype, [
+            concat_columns([c.children[j] for c in cols], counts,
+                           out_capacity)
+            for j in range(len(cols[0].children))], validity)
     if dtype.var_width:
         width = max(int(c.data.shape[1]) for c in cols)
-        datas = [torch.nn.functional.pad(c.data[:n],
-                                         (0, width - int(c.data.shape[1])))
-                 for c, n in zip(cols, counts)]
-        lens = [c.lengths[:n] for c, n in zip(cols, counts)]
-        if pad:
-            datas.append(torch.zeros((pad, width), dtype=torch.uint8,
-                                     device=dev))
-            lens.append(torch.zeros(pad, dtype=torch.int32, device=dev))
-        return Column(dtype, torch.cat(datas), torch.cat(valids),
-                      torch.cat(lens))
-    datas = [c.data[:n] for c, n in zip(cols, counts)]
-    if pad:
-        datas.append(torch.zeros(pad, dtype=cols[0].data.dtype, device=dev))
-    return Column(dtype, torch.cat(datas), torch.cat(valids))
+
+        def widened(t: torch.Tensor, n: int) -> torch.Tensor:
+            return torch.nn.functional.pad(t[:n], (0, width - t.shape[1]))
+        data = cat([widened(c.data, n) for c, n in zip(cols, counts)])
+        lens = cat([c.lengths[:n] for c, n in zip(cols, counts)])
+        ev = None
+        if dt.is_array(dtype):
+            ev = cat([widened(c.elem_validity, n)
+                      for c, n in zip(cols, counts)])
+        return Column(dtype, data, validity, lens, ev)
+    return Column(dtype, cat([c.data[:n] for c, n in zip(cols, counts)]),
+                  validity)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Logical plan: the port of spark_rapids_tpu/plan/logical.py (scan, project,
-filter, aggregate, join, sort, limit, repartition, window) with its
+filter, aggregate, join, sort, limit, repartition, window, generate) with its
 analysis: name resolution and the numeric/date coercions that insert
 implicit casts, and the size estimate the join strategy reads
 (``stats_bytes``).
@@ -15,7 +15,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..columnar import dtypes as dt
-from ..columnar.column import Column, utf8_lengths
+from ..columnar.column import (Column, HostNested, column_arity,
+                                utf8_lengths)
 from ..ops import arithmetic as ar
 from ..ops import conditionals as co
 from ..ops import expressions as ex
@@ -51,6 +52,34 @@ class HostTable:
                          {n: v for n, v in self.validity.items()
                           if n in names}, base=self.base)
 
+    def shredded(self, fields: Dict[str, Sequence[str]]) -> "HostTable":
+        """The table with each struct column of ``fields`` replaced by the
+        named fields as flat columns ``struct.field`` (each NULL where the
+        struct is), on the same base table."""
+        columns, validity, schema = {}, {}, []
+        for f in self.schema:
+            if f.name not in fields:
+                columns[f.name] = self.columns[f.name]
+                if f.name in self.validity:
+                    validity[f.name] = self.validity[f.name]
+                schema.append(f)
+                continue
+            arrays = self.columns[f.name].arrays
+            i = 1
+            for fname, ftype in f.dtype.fields:
+                k = column_arity(ftype)
+                sub = arrays[i:i + k]
+                i += k
+                if fname not in fields[f.name]:
+                    continue
+                name = f"{f.name}.{fname}"
+                schema.append(dt.Field(name, ftype))
+                if ftype.var_width:
+                    columns[name] = HostNested(ftype, sub)
+                else:
+                    columns[name], validity[name] = sub
+        return HostTable(columns, dt.Schema(schema), validity, base=self.base)
+
     def nbytes(self) -> int:
         """The table's bytes counted as arrow's ``Table.nbytes`` counts
         them, so that both engines pick the same join strategy: data
@@ -66,7 +95,10 @@ class HostTable:
             n = len(values)
             v = self.validity.get(f.name)
             nulls = v is not None and not bool(np.all(v))
-            if f.dtype == dt.STRING:
+            if isinstance(values, HostNested):
+                size = _flat_nbytes(f.dtype, values.arrays)
+                nulls = False
+            elif f.dtype == dt.STRING:
                 lens = utf8_lengths(values)
                 if v is not None:
                     lens = lens[np.asarray(v, np.bool_)]
@@ -87,6 +119,40 @@ class HostTable:
                 self.columns[f.name][lo:lo + rows], f.dtype,
                 None if v is None else v[lo:lo + rows], capacity))
         return out
+
+
+def _flat_nbytes(t: dt.DType, arrays) -> int:
+    """Arrow's byte count of a column held as the device layout's flat
+    arrays (unpadded): a validity bitmap where there are NULLs; a string's
+    4 offset bytes a row and its bytes; an ARRAY's or a MAP's 4 offset
+    bytes a row and its entries' values (plus their bitmap where one is
+    NULL); a STRUCT's fields."""
+    valid = np.asarray(arrays[0] if dt.is_struct(t) else arrays[1])
+    n = len(valid)
+    size = (n + 7) // 8 if not bool(valid.all()) else 0
+    if dt.is_struct(t):
+        i = 1
+        for _, ft in t.fields:
+            k = column_arity(ft)
+            size += _flat_nbytes(ft, arrays[i:i + k])
+            i += k
+        return size
+    if t == dt.STRING:
+        return size + 4 * n + int(arrays[2][valid].sum())
+    if not t.var_width:
+        return size + ((n + 7) // 8 if t == dt.BOOL else n * t.byte_width)
+    lens = arrays[2]
+    entries = int(lens.sum())
+    if dt.is_map(t):
+        flags = arrays[0][:, 2::3] != 0
+        per_entry = t.key.byte_width + t.element.byte_width
+    else:
+        flags = arrays[3]
+        per_entry = t.element.byte_width
+    lane = np.arange(flags.shape[1])[None, :] < lens[:, None]
+    nulls = bool((lane & ~flags).any())
+    return size + 4 * n + entries * per_entry + \
+        ((entries + 7) // 8 if nulls else 0)
 
 
 class SortOrder:
@@ -342,6 +408,32 @@ class Window(LogicalPlan):
         return dt.Schema(fields)
 
 
+class Generate(LogicalPlan):
+    """explode/posexplode (GpuGenerateExec): the child's columns, then
+    ``pos`` (posexplode) and ``col``, one row per element; a NULL or empty
+    array gives no row."""
+
+    def __init__(self, child: LogicalPlan, generator: ex.Expression,
+                 col_name: str = "col", pos_name: str = "pos"):
+        super().__init__(child)
+        self.generator = generator          # ops.arrays.Explode
+        self.col_name = col_name
+        self.pos_name = pos_name
+
+    def expressions(self):
+        return [self.generator]
+
+    def _compute_schema(self) -> dt.Schema:
+        fields = list(self.children[0].schema.fields)
+        if self.generator.pos:
+            fields.append(dt.Field(self.pos_name, dt.INT32, False))
+        fields.append(dt.Field(self.col_name, self.generator.dtype, True))
+        return dt.Schema(fields)
+
+    def _node_string(self):
+        return f"Generate [{self.generator!r}]"
+
+
 # ---------------------------------------------------------------------------
 # Analysis
 # ---------------------------------------------------------------------------
@@ -487,6 +579,8 @@ def analyze(plan: LogicalPlan) -> LogicalPlan:
     elif isinstance(plan, Window):
         plan.window_exprs = [(n, w.resolve_refs(child_schema))
                              for n, w in plan.window_exprs]
+    elif isinstance(plan, Generate):
+        plan.generator = ra(plan.generator)
     plan._schema = None
     return plan
 

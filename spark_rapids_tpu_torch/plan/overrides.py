@@ -9,11 +9,13 @@ left, right, full, left semi, left anti; broadcast at or under
 shuffled join; a right join is a left join with the sides swapped under
 a column reorder), cross join (also a join with no equality key), sort (a
 range exchange and local sorts above more than one partition), limit,
-repartition, window (plan/window_exec.py) and the DISTINCT aggregates (the
-reference's two-level plan), then collapses the remaining filter/project
-chains into whole stages (plan/stage_compiler.py), inserts the
-batch-coalescing
-transitions and attaches each fused unit's generated kernel. These are
+repartition, window (plan/window_exec.py), generate (explode, posexplode,
+explode(split())) and the DISTINCT aggregates (the reference's two-level
+plan), with struct columns read only through their fields shredded into
+flat scan columns and the reference's nested type gate, then collapses
+the remaining filter/project chains into whole stages
+(plan/stage_compiler.py), inserts the batch-coalescing transitions and
+attaches each fused unit's generated kernel. These are
 the reference's plans without adaptive execution and without a device
 mesh.
 The port has no CPU engine yet, so anything else raises
@@ -31,6 +33,7 @@ from typing import Optional
 from .. import config as cfg
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
+from ..columnar.column import device_capable
 from ..ops import arithmetic as ar
 from ..ops import expressions as ex
 from ..ops import predicates as pr
@@ -67,7 +70,8 @@ class Overrides:
         """The plan of ``plan``; ``self.decisions`` records the stage
         compiler's decisions."""
         self._check_incompat(plan)
-        plan = _prune_scan_columns(plan)
+        plan = _prune_scan_columns(_shred_struct_columns(plan))
+        _check_nested(plan)
         self.decisions = sc.FusionDecisions()
         node = self._convert(plan)
         # stages collapse before coalesce insertion, so batch coalescing
@@ -132,6 +136,8 @@ class Overrides:
         if isinstance(p, lp.Window):
             _check_window(p, kids[0])
             return TpuWindowExec(kids[0], p.window_exprs)
+        if isinstance(p, lp.Generate):
+            return ph.TpuGenerateExec(kids[0], p)
         raise NotImplementedError(
             f"{p.name} is not ported to the PyTorch engine yet")
 
@@ -429,6 +435,190 @@ def _prune_scan_columns(root: lp.LogicalPlan) -> lp.LogicalPlan:
         return out
 
     return rewrite(root)
+
+
+# Java's String.split takes a one-character pattern literally unless it is
+# one of these (its fast path): Spark's split(str, regex) is
+# String.split(regex, -1)
+_REGEX_META = set(".$|()[{^?*+\\")
+
+
+def _host_engine(reason: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{reason} (the reference runs it on its host engine, ROADMAP A6, "
+        "which the PyTorch engine does not have yet)")
+
+
+def _check_nested_expr(e: ex.Expression, in_generator: bool) -> None:
+    """The reference's expression type gate for nested types
+    (plan/overrides.py:185-215)."""
+    from ..ops import arrays as AR
+    from ..ops import maps as MP
+    for node in e.collect(lambda x: True):
+        if isinstance(node, lp.AggregateExpression) or \
+                isinstance(node, W.WindowExpression):
+            continue
+        if isinstance(node, AR.StringSplit) and in_generator:
+            continue
+        if isinstance(node, (AR.StringSplit, AR.Explode)) and \
+                not in_generator:
+            raise _host_engine("split()/explode() outside a generate "
+                               "position")
+        if isinstance(node, MP.CreateMap):
+            if any(c.dtype.is_floating for c in node.children):
+                raise _host_engine(
+                    "create_map with floating keys or values")
+        if isinstance(node, (MP.GetMapValue, MP.GetItem)) and \
+                dt.is_map(node.children[0].dtype):
+            key_t = node.children[1].dtype
+            kt = node.children[0].dtype.key
+            if (key_t.numpy_dtype is None) != (kt.numpy_dtype is None) or \
+                    key_t.var_width != kt.var_width:
+                raise _host_engine(f"map key lookup type {key_t} does not "
+                                   f"match map key type {kt}")
+        t = node.dtype
+        if not device_capable(t) and not isinstance(node, AR.StringSplit):
+            raise _host_engine(f"unsupported output type {t}")
+
+
+def _check_nested(p: lp.LogicalPlan) -> None:
+    """The reference's nested-type tagging (plan/overrides.py:117-130,
+    185-215, 277-330, 365-390): where it sends a plan to its host engine,
+    the port raises with its reason."""
+    for c in p.children:
+        _check_nested(c)
+    for f in p.schema.fields:
+        if not device_capable(f.dtype):
+            raise _host_engine(f"unsupported column type {f.dtype} for "
+                               f"{f.name}")
+    if isinstance(p, lp.Generate):
+        from ..ops import arrays as AR
+        inner = p.generator.children[0]
+        if isinstance(inner, AR.StringSplit):
+            d = inner.delimiter
+            if not (isinstance(d, str) and len(d) == 1 and ord(d) < 128):
+                raise _host_engine("explode(split()) needs a single-byte "
+                                   "literal delimiter")
+            if d in _REGEX_META:
+                # the reference splits on the byte itself: Spark's split
+                # takes a regex, where '.' or '|' means another split
+                raise _host_engine(
+                    f"explode(split()) on {d!r}, a regex metacharacter "
+                    "(Spark splits on the regex, not on the byte)")
+            if inner.children[0].dtype != dt.STRING:
+                raise _host_engine("split() of a non-string")
+        elif not dt.is_array(inner.dtype) or inner.dtype.element.var_width:
+            raise _host_engine(f"explode over {inner.dtype} (needs "
+                               "ARRAY<primitive> or split())")
+        _check_nested_expr(p.generator.children[0], True)
+    else:
+        for e in p.expressions():
+            _check_nested_expr(e, False)
+    key_exprs = []
+    if isinstance(p, lp.Sort):
+        key_exprs = [o.child for o in p.orders]
+    elif isinstance(p, lp.Aggregate):
+        key_exprs = list(p.grouping)
+    elif isinstance(p, lp.Repartition):
+        key_exprs = list(p.by or [])
+    elif isinstance(p, lp.Join) and p.condition is not None:
+        key_exprs = [p.condition]
+    for e in key_exprs:
+        if e.collect(lambda x: dt.is_struct(x.dtype)):
+            raise _host_engine("struct-typed keys (sort, group, partition, "
+                               "join)")
+
+
+def _shred_struct_columns(root: lp.LogicalPlan) -> lp.LogicalPlan:
+    """STRUCT shredding (the reference's plan/overrides.py:1058): when
+    every use of a scan's struct column goes through ``GetField``, the
+    referenced fields become flat scan columns named ``s.f`` and the
+    accesses plain column refs, so the query holds no struct at all. A
+    whole-struct use anywhere keeps the struct column (a StructColumn)."""
+    from ..ops.structs import GetField
+    struct_cols = {f.name for p in _walk(root) if isinstance(p, lp.LocalScan)
+                   for f in p.schema.fields if dt.is_struct(f.dtype)}
+    if not struct_cols:
+        return root
+    field_uses: dict = {}
+    whole_uses: set = set()
+
+    def scan_expr(e: ex.Expression) -> None:
+        if isinstance(e, GetField) and isinstance(e.children[0],
+                                                  ex.ColumnRef) and \
+                e.children[0].col_name in struct_cols:
+            field_uses.setdefault(e.children[0].col_name, set()).add(e.field)
+            return
+        if isinstance(e, ex.ColumnRef) and e.col_name in struct_cols:
+            whole_uses.add(e.col_name)
+        for c in e.children:
+            scan_expr(c)
+
+    # only the nodes whose expressions the rewrite below handles may shred
+    rewritable = (lp.Project, lp.Filter, lp.Aggregate, lp.Sort, lp.Join)
+    for p in _walk(root):
+        for e in p.expressions():
+            if isinstance(p, rewritable):
+                scan_expr(e)
+            else:
+                whole_uses.update(
+                    r.col_name for r in e.collect(
+                        lambda x: isinstance(x, ex.ColumnRef))
+                    if r.col_name in struct_cols)
+        if isinstance(p, lp.Window):
+            whole_uses.update(
+                r.col_name for _n, w in p.window_exprs
+                for k in w.spec.key_expressions()
+                for r in k.collect(lambda x: isinstance(x, ex.ColumnRef))
+                if r.col_name in struct_cols)
+    whole_uses.update(n for n in root.schema.names() if n in struct_cols)
+    shred = {n: sorted(fs) for n, fs in field_uses.items()
+             if n not in whole_uses}
+    if not shred:
+        return root
+
+    def rewrite_plan(p: lp.LogicalPlan) -> lp.LogicalPlan:
+        if isinstance(p, lp.LocalScan):
+            if not any(f.name in shred for f in p.schema.fields):
+                return p
+            return lp.LocalScan(p.data.shredded(shred))
+        kids = [rewrite_plan(c) for c in p.children]
+        out = copy.copy(p)
+        out.children = kids
+        out._schema = None
+        return out
+
+    def rewrite_expr(e: ex.Expression) -> ex.Expression:
+        def fn(node):
+            if isinstance(node, GetField) and isinstance(
+                    node.children[0], ex.ColumnRef) and \
+                    node.children[0].col_name in shred:
+                return ex.ColumnRef(
+                    f"{node.children[0].col_name}.{node.field}")
+            return None
+        return e.transform_down(fn)
+
+    new_root = rewrite_plan(root)
+    for p in _walk(new_root):
+        if isinstance(p, lp.Project):
+            p.exprs = [rewrite_expr(e) for e in p.exprs]
+        elif isinstance(p, lp.Filter):
+            p.condition = rewrite_expr(p.condition)
+        elif isinstance(p, lp.Aggregate):
+            # an output that is a grouping key stays the same object
+            # (analyze matches computed keys by identity)
+            keys = {id(g): rewrite_expr(g) for g in p.grouping}
+            p.aggregate_exprs = [
+                rewrite_expr(e.transform_down(lambda n: keys.get(id(n))))
+                for e in p.aggregate_exprs]
+            p.grouping = [keys[id(g)] for g in p.grouping]
+        elif isinstance(p, lp.Sort):
+            p.orders = [lp.SortOrder(rewrite_expr(o.child), o.ascending,
+                                     o.nulls_first) for o in p.orders]
+        elif isinstance(p, lp.Join) and p.condition is not None:
+            p.condition = rewrite_expr(p.condition)
+    # the rewritten refs are new: resolve the plan again
+    return lp.analyze(new_root)
 
 
 def _check_window(p: lp.Window, child: ph.TpuExec) -> None:

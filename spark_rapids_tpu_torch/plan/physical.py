@@ -40,6 +40,7 @@ from ..columnar.batch import ColumnarBatch, resolve_counts
 from ..columnar.column import Column, Scalar, bucket
 from ..exec.pipeline import PipelineWindow
 from ..ops import aggregates as agg_k
+from ..ops import arrays as ar_ops
 from ..ops import expressions as ex
 from ..ops import joins as join_k
 from ..ops import kernels as K
@@ -1071,6 +1072,59 @@ class TpuSortExec(TpuExec):
         idx = K.sort_indices(keys, batch.num_rows, batch.capacity)
         cols = [K.gather_column(c, idx) for c in batch.columns]
         yield ColumnarBatch(self.schema, cols, batch.num_rows)
+
+
+class TpuGenerateExec(TpuExec):
+    """explode/posexplode (GpuGenerateExec): the child's columns repeated
+    per element, then ``pos`` (posexplode) and the element. An array runs
+    K25 in array mode; ``explode(split(s, d))`` runs K26's count mode, K25's
+    index mode and K26's place mode, without the intermediate
+    array<string>. K25 reads the output size from the device once per
+    batch (the reference reads it there too, then once more for its row
+    count, which the port does not)."""
+
+    def __init__(self, child: TpuExec, plan: lp.Generate):
+        super().__init__(child)
+        gen = plan.generator
+        self.pos = gen.pos
+        inner = gen.children[0]
+        if isinstance(inner, ar_ops.StringSplit):
+            self.split_delim = inner.delimiter
+            inner = inner.children[0]
+        else:
+            self.split_delim = None
+        self.gen_input = bind_refs(inner, child.schema)
+        self._schema = plan.schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def execute(self) -> List[Partition]:
+        return [self._map(p) for p in self.children[0].execute()]
+
+    def _map(self, part: Partition) -> Partition:
+        for batch in part:
+            arr = ex.materialize(self.gen_input.eval(batch), batch)
+            live = batch.row_mask_raw()
+            if self.split_delim is not None:
+                out, elem, pos = ar_ops.split_explode(
+                    arr, ord(self.split_delim), live)
+            else:
+                out, elem, pos = ar_ops.explode_array(arr, live)
+            if out.count == 0:
+                continue
+            src = out.src.to(torch.int64)
+            out_live = out.live()
+            cols = [K.gather_column(c, src, out_valid=out_live)
+                    for c in batch.columns]
+            cols += ([pos] if self.pos else []) + [elem]
+            yield ColumnarBatch(self._schema, cols, out.count)
+
+    def _node_string(self):
+        what = f"split {self.split_delim!r}" if self.split_delim is not None \
+            else "array"
+        return f"TpuGenerateExec [{what}{', pos' if self.pos else ''}]"
 
 
 class TpuLimitExec(TpuExec):

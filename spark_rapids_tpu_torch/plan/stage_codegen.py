@@ -59,7 +59,7 @@ import torch
 from .. import native
 from ..columnar import dtypes as dt
 from ..columnar.batch import ColumnarBatch
-from ..columnar.column import Column, Scalar, storage_dtype
+from ..columnar.column import Column, Scalar, is_nested, storage_dtype
 from ..ops import aggregates as agg_k
 from ..ops import arithmetic as ar
 from ..ops import conditionals as co
@@ -505,6 +505,12 @@ class StageKernel:
             return self.mat(node.children[0])
         if isinstance(node, (ex.Alias, ar.UnaryPositive)):
             return self.val(node.children[0])
+        nested = [t for t in [node.dtype] + [c.dtype for c in node.children]
+                  if is_nested(t)]
+        if nested:
+            # a deliberate difference: the reference fuses an array index
+            raise Declined(f"expression not generated (reads a {nested[0]} "
+                           "value)")
         if node.dtype == dt.STRING:
             raise self._decline(node)
         if isinstance(node, ar.BinaryArithmetic):

@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
      timed; every kernel is rebuilt, whatever _build/ already holds; then
      the generated stage kernels of the main path's plans (planned over
      tiny tables) compiled by NVRTC and loaded, counted and timed;
-  3. each kernel (K1-K28, K7's outer mode, K13's locate mode, K1's fold
+  3. each kernel (K1-K30, K7's outer mode, K13's locate mode, K1's fold
      alone and K21's offset mode) against
      its plain PyTorch twin on the card, at the main path's shapes and at
      edge cases, with the stated tolerance,
@@ -44,7 +44,11 @@ Phases, each printing one JSON line:
      4-64, NULL and empty arrays, NULL elements, random UTF-8 rows with the
      split's edge cases, duplicate and absent keys, NULL values, float
      maps, a float key on an int map and a bigint key on an int map,
-     timed at the nested phase's shapes;
+     timed at the nested phase's shapes; K29 and K30 (the mesh's exchange
+     bucketing and receive flattening) bit for bit at 1, 2, 4, 8 and 1024
+     workers over empty slots, one full slot, no rows, every element width,
+     junk bytes, NaN payloads and -0.0, timed at one worker's side of the
+     mesh phase's q3 lineitem exchange;
      then K2, K3 and K11 at 9 and 17 key columns (their wrappers split the
      keys into blocks of 8) against their one-pass twins, and K12 at 5000
      and 65536 partitions (its device-memory counters);
@@ -83,7 +87,15 @@ Phases, each printing one JSON line:
      exchanges, shuffled joins, a range exchange under the sort; q13's
      join a left outer one), q11 and q15 on a cross join, q22 on a cross
      join and a shuffled left anti join;
-     then, outside the counted run, the headline and q1 at update-window
+     then, outside the counted run, the mesh phase (M1-M5: q1, q3, a
+     global orderBy over lineitem, q18's l_orderkey group-by through the
+     streaming route and a repartition(8, l_orderkey) on the ICI plane,
+     through a session with 4 mesh workers on the card, mesh.enabled=true,
+     broadcast off, over datagen's tables at SF 1; each a cold and two hot
+     runs held to numpy oracles, its plan's mesh execs, its peak and its
+     cold run's launches; the counters set to 0 before the phase: its K29
+     and K30 launches are their `phase_launches`), the headline and q1 at
+     update-window
      depths 48, 8 and 1 (hot time and device peak at each), q3 and q4
      in the shuffled and the broadcast join form (join_form_ab), q11 at
      the TPC-H fraction 0.0001 / SF (q11_scaled, which must return rows),
@@ -3991,7 +4003,13 @@ PHASE_KERNELS = {"singleword_rank": "check_k10: groupby_singleword at 2^20 "
                  "rows (no engine path calls the single-word route)",
                  "build_matched": "outer_forms: customer FULL OUTER JOIN "
                  "q13's filtered orders (no main-path query is a full "
-                 "outer join)"}
+                 "outer join)",
+                 "exchange_bucket": "mesh: M1-M5 over 4 mesh workers on "
+                 "one card (with mesh.enabled at its default, auto, one "
+                 "card gives no mesh)",
+                 "exchange_flatten": "mesh: M1-M5 over 4 mesh workers on "
+                 "one card (with mesh.enabled at its default, auto, one "
+                 "card gives no mesh)"}
 
 
 # ---------------------------------------------------------------------------
@@ -4446,6 +4464,408 @@ def nested_phase(tables, oracle, n4, device) -> dict:
                       "sums of quarter values exact"}
 
 
+# ---------------------------------------------------------------------------
+# The mesh phase (M1-M5): 4 workers on one card, K29 and K30
+# ---------------------------------------------------------------------------
+
+# SF 1, cut from the main phase's SF 10: the mesh's receive windows hold
+# workers x cap rows of every array on each worker, so with 4 workers on
+# one card a stage holds about 16 x its shard's capacity per array
+MESH_SF = 1.0
+MESH_WORKERS = 4
+MESH_WINDOW_ROWS = 1 << 17
+# K29/K30's timed shape: one worker's side of q3's lineitem co-partition at
+# SF 1 (l_shipdate > 1995-03-15 keeps ~3.24 M of 6 M rows; a quarter of
+# them in a 2^20-row shard) with its payload arrays: l_orderkey,
+# l_extendedprice, l_discount (8 bytes), l_shipdate (4), each + validity
+MESH_SHARD_CAP, MESH_SHARD_ROWS = 1 << 20, 810_000
+MESH_PAYLOAD = (("int64", ()), ("bool", ()), ("float64", ()), ("bool", ()),
+                ("float64", ()), ("bool", ()), ("int32", ()), ("bool", ()))
+# the kernels each mesh query must launch in its cold run
+MESH_KERNELS = {
+    "M1_q1": ("exchange_bucket", "exchange_flatten", "partition_split",
+              "murmur3", "sort_key_lanes", "segment_bounds",
+              "segment_reduce", "join_probe"),
+    "M2_q3": ("exchange_bucket", "exchange_flatten", "partition_split",
+              "murmur3", "sort_key_lanes", "join_probe", "join_expand",
+              "segment_bounds", "segment_reduce"),
+    "M3_orderby": ("exchange_bucket", "exchange_flatten", "partition_split",
+                   "sort_key_lanes", "join_probe"),
+    "M4_q18_streaming": ("exchange_bucket", "exchange_flatten",
+                         "partition_split", "murmur3", "sort_key_lanes",
+                         "segment_bounds", "segment_reduce"),
+    "M5_repartition": ("exchange_bucket", "exchange_flatten",
+                       "partition_split", "murmur3")}
+# the mesh operators each mesh query's plan must hold
+MESH_OPERATORS = {
+    "M1_q1": ("TpuMeshGroupByExec", "TpuMeshSortExec"),
+    "M2_q3": ("TpuMeshJoinExec", "TpuMeshGroupByExec", "TpuMeshSortExec"),
+    "M3_orderby": ("TpuMeshSortExec",),
+    "M4_q18_streaming": ("TpuMeshGroupByExec",),
+    "M5_repartition": ("TpuShuffleExchangeExec",)}
+# session settings of one query, restored after it
+MESH_QUERY_CONF = {
+    "M4_q18_streaming": {"spark.rapids.tpu.sql.mesh.maxStageBytes": "1m",
+                         "spark.rapids.tpu.sql.mesh.streamWindowRows":
+                             MESH_WINDOW_ROWS},
+    "M5_repartition": {"spark.rapids.tpu.sql.shuffle.plane": "ici"}}
+
+
+def mesh_data(sf: float) -> dict:
+    from benchmarks import datagen
+    return {"lineitem": datagen.gen_lineitem(sf),
+            "orders": datagen.gen_orders(sf),
+            "customer": datagen.gen_customer(sf)}
+
+
+def mesh_oracles(d) -> dict:
+    """M1-M5's expected results: q1's and q3's rows, the sorted lineitem
+    columns, q18's per-order quantity sums (bincount), the repartitioned
+    rows as a multiset (lexsorted)."""
+    l = d["lineitem"]
+    ok, price, ship = l["l_orderkey"], l["l_extendedprice"], l["l_shipdate"]
+    order = np.lexsort((ship, ok, -price))
+    keys, inv = np.unique(ok, return_inverse=True)
+    qty = np.bincount(inv, weights=l["l_quantity"])
+    part = l["l_partkey"]
+    rep = np.lexsort((l["l_quantity"], part, ok))
+    return {"M1_q1": oracle_q1(l),
+            "M2_q3": oracle_q3(l, d["orders"], d["customer"]),
+            "M3_orderby": (ok[order], price[order], ship[order]),
+            "M4_q18_streaming": (keys, qty),
+            "M5_repartition": (ok[rep], part[rep], l["l_quantity"][rep])}
+
+
+def mesh_queries(t) -> dict:
+    from spark_rapids_tpu_torch import queries
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.functions import col
+    l = t["lineitem"]
+    return {
+        "M1_q1": queries.q1(t),
+        "M2_q3": queries.q3(t),
+        "M3_orderby": l.select("l_orderkey", "l_extendedprice",
+                               "l_shipdate")
+        .orderBy(col("l_extendedprice").desc(), col("l_orderkey")),
+        "M4_q18_streaming": l.groupBy("l_orderkey").agg(
+            F.sum("l_quantity").alias("sum_qty")),
+        "M5_repartition": l.select("l_orderkey", "l_partkey", "l_quantity")
+        .repartition(8, "l_orderkey")}
+
+
+def _host_columns(batch) -> list:
+    n = batch.num_rows
+    for c in batch.columns:
+        if not bool(c.validity[:n].all()):
+            raise AssertionError("a NULL where the data has none")
+    return [c.data[:n].cpu().numpy() for c in batch.columns]
+
+
+def _check_arrays(name: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: column {i} differs from its "
+                                 f"oracle ({g.shape} vs {w.shape})")
+
+
+def mesh_collect(name: str, df):
+    """One run of a mesh query: q1's and q3's rows, the others' device
+    batch (synchronized)."""
+    import torch
+    if name in ("M1_q1", "M2_q3"):
+        return df.collect()
+    batch = df.collect_batch()
+    torch.cuda.synchronize()
+    return batch
+
+
+def mesh_check(name: str, got, want) -> None:
+    """Hold one mesh query's result to its oracle."""
+    if name in ("M1_q1", "M2_q3"):
+        check_rows(name, got, want)
+        return
+    got = _host_columns(got)
+    if name == "M3_orderby":
+        ok, price, ship = got
+        # keys in order; rows of equal keys in any order
+        _check_arrays(name, (ok, price), want[:2])
+        order = np.lexsort((ship, ok, -price))
+        _check_arrays(name, (ok[order], price[order], ship[order]), want)
+    elif name == "M4_q18_streaming":
+        order = np.argsort(got[0])
+        _check_arrays(name, (got[0][order], got[1][order]),
+                      (want[0], want[1].astype(np.int64)))
+    else:
+        order = np.lexsort((got[2], got[1], got[0]))
+        _check_arrays(name, [g[order] for g in got], want)
+
+
+def mesh_phase(data, oracle, device) -> dict:
+    """M1-M5 through a session with a 4-worker mesh on ``device``
+    (mesh.enabled=true, broadcast off), over datagen's TPC-H tables at SF
+    1: one cold and two hot runs each, every run held to its oracle; the
+    launch counters set to 0 before the phase and read after it."""
+    import torch
+    from spark_rapids_tpu_torch import native, queries
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    session = TpuSession.builder.config({
+        "spark.rapids.torch.device": str(device),
+        "spark.rapids.torch.mesh.workers": MESH_WORKERS,
+        "spark.rapids.tpu.sql.mesh.enabled": "true",
+        "spark.rapids.tpu.sql.autoBroadcastJoinThreshold": -1}
+    ).getOrCreate()
+    tables = {name: session.createDataFrame(
+        cols, schema=queries.table_schema(cols))
+        for name, cols in data.items()}
+    native.reset_counts()
+    runs = {}
+    for name, df in mesh_queries(tables).items():
+        conf = MESH_QUERY_CONF.get(name, {})
+        saved = {k: session.conf._settings.get(k) for k in conf}
+        for k, v in conf.items():
+            session.conf.set(k, v)
+        try:
+            before = native.counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            times, check_s = [], 0.0
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = mesh_collect(name, df)
+                times.append(time.perf_counter() - t0)
+                if len(times) == 1:
+                    launches = {k: v - before[k] for k, v in
+                                native.counts().items() if v != before[k]}
+                t0 = time.perf_counter()
+                mesh_check(name, got, oracle[name])
+                check_s += time.perf_counter() - t0
+                del got
+            cold, hots = times[0], times[1:]
+            plan = session.last_plan()
+        finally:
+            for k, v in saved.items():
+                session.conf.set(k, v)
+        missing = [k for k in MESH_KERNELS[name] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{name} did not launch {missing}")
+        nodes = list(_plan_nodes(plan))
+        names = {n.name for n in nodes}
+        absent = [op for op in MESH_OPERATORS[name] if op not in names]
+        if absent:
+            raise AssertionError(f"{name}: plan lacks {absent}:\n{plan}")
+        if name == "M4_q18_streaming" and not any(
+                getattr(n, "window_rows", None) == MESH_WINDOW_ROWS
+                for n in nodes):
+            raise AssertionError(f"{name} did not stream:\n{plan}")
+        if name == "M5_repartition" and not any(
+                n.name == "TpuShuffleExchangeExec" and n.would_use_ici()
+                for n in nodes):
+            raise AssertionError(f"{name}: no ICI exchange:\n{plan}")
+        runs[name] = {
+            "cold_s": cold, "hot_s": min(hots), "check_s": check_s,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(device),
+            "launches_cold_run": launches,
+            "mesh_execs": [n._node_string() for n in nodes
+                           if "Mesh" in n.name or getattr(n, "mesh", None)],
+            "plan": plan.operator_tree().splitlines()}
+    return {"phase": "mesh", "sf": MESH_SF, "workers": MESH_WORKERS,
+            "devices": [str(device)] * MESH_WORKERS,
+            "lineitem_rows": len(data["lineitem"]["l_orderkey"]),
+            "runs": runs, "phase_launches": native.counts(),
+            "note": "one process, 4 mesh workers on one card: the "
+                    "all_to_all is a transpose in device memory (no NVLink, "
+                    "no NCCL); cold_s, hot_s (least of 2): the collect "
+                    "(q1, q3: to python rows; the rest: the device batch, "
+                    "synchronized); check_s: the 3 runs' checks against "
+                    "the oracle",
+            "oracle": "numpy: q1/q3 relative 1e-9, the rest exact"}
+
+
+def _mesh_payload(rng, cap: int, device) -> list:
+    import torch
+    out = []
+    for tname, shape in MESH_PAYLOAD:
+        dt_ = getattr(torch, tname)
+        if tname == "bool":
+            out.append(torch.rand((cap,) + shape, device=device) < 0.9)
+        elif dt_.is_floating_point:
+            out.append(torch.randn((cap,) + shape, device=device,
+                                   dtype=dt_))
+        else:
+            out.append(torch.randint(-2 ** 31, 2 ** 31 - 1, (cap,) + shape,
+                                     device=device, dtype=dt_))
+    return out
+
+
+def _edge_payload(rng, cap: int, device) -> list:
+    """Every element width (1, 2, 4, 8 bytes), strings of 16 and 24 bytes
+    with junk past their lengths, float bits with NaN payloads and -0.0."""
+    import torch
+    f = torch.randn(cap, device=device, dtype=torch.float64)
+    f[::7] = -0.0
+    f[::11] = float("nan")
+    bits = torch.randint(-2 ** 62, 2 ** 62, (cap,), device=device)
+    return [bits, f, torch.rand(cap, device=device) < 0.5,
+            torch.randint(-999, 999, (cap,), device=device,
+                          dtype=torch.int16),
+            torch.randint(0, 255, (cap,), device=device,
+                          dtype=torch.uint8),
+            torch.randint(0, 255, (cap, 16), device=device,
+                          dtype=torch.uint8),
+            torch.randint(0, 255, (cap, 24), device=device,
+                          dtype=torch.uint8),
+            torch.randint(0, 17, (cap,), device=device, dtype=torch.int32),
+            f.to(torch.float32)]
+
+
+def _same_bits(got, want, what: str) -> None:
+    import torch
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(
+                g.contiguous().view(torch.uint8),
+                w.contiguous().view(torch.uint8)):
+            raise AssertionError(f"{what}: kernel and twin differ")
+
+
+def _pids(case: str, n: int, cap: int, device):
+    import torch
+    pids = torch.randint(0, n, (cap,), dtype=torch.int32, device=device)
+    if case == "one_slot":
+        pids.fill_(n - 1)
+    elif case == "empty_slots":
+        pids = (pids // 2) * 2 % n
+    return pids
+
+
+def check_k29(device, rng) -> dict:
+    """K29 (+ K12 inside its wrapper) against its twin (the reference's n
+    compactions), bit for bit: n = 1, 2, 4, 8 and 1024; random targets,
+    empty slots, every row in one slot, no live row; every element width,
+    junk past string lengths, NaN payloads, -0.0; 33 arrays (two blocks of
+    the kernel's table). Timed at the mesh phase's q3 lineitem shard."""
+    import torch
+    from spark_rapids_tpu_torch.parallel import mesh as M
+    checks = 0
+    for n in (1, 2, 4, 8, 1024):
+        for case in ("random", "empty_slots", "one_slot", "no_rows"):
+            cap = 4096 if n < 1024 else 1 << 14
+            rows = 0 if case == "no_rows" else cap - int(
+                rng.integers(0, cap // 3))
+            arrays = _edge_payload(rng, cap, device)
+            if n == 8 and case == "random":
+                arrays = (arrays * 4)[:33]
+            pids = _pids(case, n, cap, device)
+            live = torch.arange(cap, device=device) < rows
+            got = M.bucket_rows_for_exchange(arrays, pids, live, n, cap)
+            if n == 1024:     # the twin's n compactions, on the host
+                want = M._bucket_rows_torch([a.cpu() for a in arrays],
+                                            pids.cpu(), live.cpu(), n, cap)
+                got = ([g.cpu() for g in got[0]], got[1].cpu())
+            else:
+                want = M._bucket_rows_torch(arrays, pids, live, n, cap)
+            _same_bits(got[0] + [got[1]], want[0] + [want[1]],
+                       f"K29 {case} n={n}")
+            checks += 1
+    n, cap, rows = MESH_WORKERS, MESH_SHARD_CAP, MESH_SHARD_ROWS
+    arrays = _mesh_payload(rng, cap, device)
+    pids = torch.randint(0, n, (cap,), dtype=torch.int32, device=device)
+    live = torch.arange(cap, device=device) < rows
+    _same_bits(M.bucket_rows_for_exchange(arrays, pids, live, n, cap)[0],
+               M._bucket_rows_torch(arrays, pids, live, n, cap)[0],
+               "K29 mesh shard")
+    row_bytes = sum(a.element_size() * (a[0].numel() if a.dim() > 1 else 1)
+                    for a in arrays)
+    # K29's launch alone, on the wrapper's K12 order and counts
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.shuffle.partitioning import partition_split
+    perm, counts = partition_split(
+        torch.where(live, pids, n).to(torch.int32), cap, n)
+    outs = [torch.empty((n,) + tuple(a.shape), dtype=a.dtype, device=device)
+            for a in arrays]
+    descs = M._descs(list(zip(arrays, outs)))
+    lib = native.library("exchange_bucket")
+    stream = native.stream_ptr(device)
+
+    def launch():
+        native.check(lib.exchange_bucket(descs, len(arrays), perm.data_ptr(),
+                                         counts.data_ptr(), n, cap, stream),
+                     "exchange_bucket")
+    return {
+        "name": "exchange_bucket", "checks": checks + 1,
+        "launch_only_ms": time_ms(launch),
+        "max_abs_err": 0.0, "tolerance": "exact (bits, zero padding too)",
+        "workers": n, "rows": rows, "capacity": cap,
+        "arrays": [t for t, _s in MESH_PAYLOAD],
+        "timed": "the wrapper (K12's order of the rows by target, then "
+                 "K29) over one worker's q3 lineitem shard at SF 1",
+        "ms": time_ms(lambda: M.bucket_rows_for_exchange(arrays, pids, live,
+                                                         n, cap)),
+        "plain_ms": time_ms(lambda: M._bucket_rows_torch(arrays, pids, live,
+                                                         n, cap), iters=5),
+        # the live rows' payload and the ids and live mask read; the n x cap
+        # slots of every array and the counts written
+        "bound_ms": bound_ms(rows * row_bytes + cap * (4 + 1) +
+                             n * cap * row_bytes + n * 4),
+        "library_ms": None,
+        "library": "none: no PyTorch call buckets rows into slots"}
+
+
+def check_k30(device, rng) -> dict:
+    """K30 against its twin (the reference's cumsum, searchsorted, gather
+    and where), bit for bit: n = 1, 2, 4, 8 and 1024; random counts, empty
+    slots, one full slot, no rows; every element width and junk bytes.
+    Timed at the receive side of the mesh phase's q3 lineitem exchange."""
+    import torch
+    from spark_rapids_tpu_torch.parallel import mesh as M
+    checks = 0
+    for n in (1, 2, 4, 8, 1024):
+        cap = 2048 if n < 1024 else 16
+        for case in ("random", "empty_slots", "one_slot", "no_rows"):
+            counts = torch.randint(0, cap + 1, (n,), dtype=torch.int32,
+                                   device=device)
+            if case == "empty_slots":
+                counts[::2] = 0
+            elif case == "one_slot":
+                counts.zero_()
+                counts[n // 2] = cap
+            elif case == "no_rows":
+                counts.zero_()
+            slots = [torch.stack([a] * n) for a in
+                     _edge_payload(rng, cap, device)]
+            out_cap = n * cap
+            got = M.flatten_received(slots, counts, out_cap)
+            want = M._flatten_received_torch(slots, counts, out_cap)
+            _same_bits(got[0] + [got[1].reshape(1)],
+                       want[0] + [want[1].reshape(1)], f"K30 {case} n={n}")
+            checks += 1
+    n, cap = MESH_WORKERS, MESH_SHARD_CAP
+    slots = [torch.stack([a] * n) for a in _mesh_payload(rng, cap, device)]
+    counts = torch.full((n,), MESH_SHARD_ROWS // n, dtype=torch.int32,
+                        device=device)
+    out_cap = n * cap
+    _same_bits(M.flatten_received(slots, counts, out_cap)[0],
+               M._flatten_received_torch(slots, counts, out_cap)[0],
+               "K30 mesh shard")
+    total = int(counts.sum())
+    row_bytes = sum(s.element_size() * (s[0][0].numel() if s.dim() > 2
+                                        else 1) for s in slots)
+    return {
+        "name": "exchange_flatten", "checks": checks + 1,
+        "max_abs_err": 0.0, "tolerance": "exact (bits, zero padding too)",
+        "workers": n, "rows": total, "capacity": cap, "out_capacity": out_cap,
+        "timed": "one worker's received q3 lineitem slots at SF 1 "
+                 "(n x cap in, n x cap out)",
+        "ms": time_ms(lambda: M.flatten_received(slots, counts, out_cap)),
+        "plain_ms": time_ms(lambda: M._flatten_received_torch(
+            slots, counts, out_cap), iters=5),
+        # the received live rows and the counts read; out_cap rows of every
+        # array and the total written
+        "bound_ms": bound_ms(total * row_bytes + n * 4 +
+                             out_cap * row_bytes + 4),
+        "library_ms": None,
+        "library": "none: no PyTorch call flattens slots by their counts"}
+
+
 def run_query(name: str, tables, cache, oracle, n_rows: int, device
               ) -> dict:
     """One cold and three hot runs of a query through the session, each
@@ -4559,7 +4979,9 @@ def main_data(sf: float) -> tuple:
             # dimensions q98 and q89 read
             **queries.tpcds_tables(sf),
             # the nested phase's struct rows (not a table of the main path)
-            "n4": n4_data(N4_ROWS)}
+            "n4": n4_data(N4_ROWS),
+            # the mesh phase's tables at SF 1 (not the main path's)
+            "mesh": mesh_data(MESH_SF)}
     return data, time.perf_counter() - t0
 
 
@@ -4591,6 +5013,7 @@ class Oracles:
             return rows
         # the longest first
         jobs = {"windows": lambda: window_oracles(o, l),
+                "mesh": lambda: mesh_oracles(data["mesh"]),
                 "nested": lambda: nested_oracles(o, p, l, data["n4"]),
                 "q21": lambda: oracle_q21(l, o, s, n),
                 "q1": lambda: oracle_q1(l),
@@ -4668,7 +5091,7 @@ def main_path(sf: float, data, oracles, device) -> tuple:
     ).getOrCreate()
     tables = {name: session.createDataFrame(
         cols, schema=queries.table_schema(cols))
-        for name, cols in data.items() if name != "n4"}
+        for name, cols in data.items() if name not in ("n4", "mesh")}
     torch.cuda.reset_peak_memory_stats(device)
     lines, k15_shapes = [], {}
     with recording(J, "cross_expand") as calls:
@@ -4719,7 +5142,8 @@ def main_path(sf: float, data, oracles, device) -> tuple:
         host_passes = native.host_counts()
     peak = max(line.get("peak_device_bytes", 0) for line in lines)
     phases = []
-    for phase in (lambda: window_depth_ab(session, tables, oracles, device),
+    for phase in (lambda: mesh_phase(data["mesh"], oracles["mesh"], device),
+                  lambda: window_depth_ab(session, tables, oracles, device),
                   lambda: join_form_ab(session, tables, oracles, device),
                   lambda: q11_with_rows(session, tables, data, sf),
                   lambda: fusion_ab(session, tables, oracles, device),
@@ -5155,6 +5579,8 @@ REPLACES = {
     "split_parts": "spark_rapids_tpu/ops/arrays.py:189, 200",
     "map_lookup": "spark_rapids_tpu/ops/maps.py:140",
     "map_build": "spark_rapids_tpu/ops/maps.py:74",
+    "exchange_bucket": "spark_rapids_tpu/parallel/mesh.py:129",
+    "exchange_flatten": "spark_rapids_tpu/parallel/mesh.py:166",
 }
 
 
@@ -5224,7 +5650,8 @@ def main() -> int:
                   check_k10, check_k11, check_k12, check_k13, check_k14,
                   check_k15, check_k16, check_k17, check_k18, check_locate,
                   check_k19, check_k20, check_k21, check_k22, check_k23,
-                  check_k24, check_k25, check_k26, check_k27, check_k28):
+                  check_k24, check_k25, check_k26, check_k27, check_k28,
+                  check_k29, check_k30):
         if args.only and check.__name__ not in args.only.split(","):
             continue
         t0 = time.perf_counter()
@@ -5263,6 +5690,12 @@ def main() -> int:
     emit({"phase": "kernel", **r})
     results["build_matched"]["phase_launches"] = \
         phases[-1]["phase_launches"]["build_matched"]
+    (mesh,) = [p for p in phases if p["phase"] == "mesh"]
+    for name in ("exchange_bucket", "exchange_flatten"):
+        if launches[name]:
+            raise AssertionError(f"the main path launched {name}: a mesh "
+                                 "where mesh.enabled=auto on one card")
+        results[name]["phase_launches"] = mesh["phase_launches"][name]
     unused = [k for k in native.KERNELS
               if k not in PHASE_KERNELS and launches[k] <= 0]
     if unused:

@@ -138,6 +138,65 @@ AUTO_BROADCAST_JOIN_THRESHOLD = ConfEntry(
     10 * 1024 * 1024, parse_bytes)
 
 
+def _one_of(*allowed: str) -> Callable[[Any], str]:
+    def check(value: Any) -> str:
+        s = str(value).strip().lower()
+        if s not in allowed:
+            raise ValueError(f"{value!r} is not one of {'/'.join(allowed)}")
+        return s
+    return check
+
+
+def _at_least(lo: int) -> Callable[[Any], int]:
+    def check(value: Any) -> int:
+        v = int(value)
+        if v < lo:
+            raise ValueError(f"{value!r} is below {lo}")
+        return v
+    return check
+
+
+SHUFFLE_PLANE = ConfEntry(
+    "spark.rapids.tpu.sql.shuffle.plane",
+    "Shuffle exchange data plane: 'auto' (the device mesh's all_to_all "
+    "when a mesh is active and the stage fits, the local split "
+    "otherwise), 'ici' (force the mesh; planning fails without one), "
+    "'dcn' (force the local split; the reference's host/TCP plane).",
+    "auto", _one_of("auto", "ici", "dcn"))
+
+MESH_ENABLED = ConfEntry(
+    "spark.rapids.tpu.sql.mesh.enabled",
+    "SPMD execution over a mesh of workers (parallel/mesh.py): 'auto' (a "
+    "CUDA session with at least 2 workers), 'true' (force; fewer than 2 "
+    "workers raises), 'false'. Routes supported group-by, join and sort "
+    "plans through all_to_all pipelines instead of the local exchanges.",
+    "auto", _one_of("auto", "true", "false", "1", "0"))
+
+MESH_MAX_STAGE_BYTES = ConfEntry(
+    "spark.rapids.tpu.sql.mesh.maxStageBytes",
+    "Upper bound on the estimated input of a single-shot mesh stage (the "
+    "whole input staged at once, receive windows workers x cap). "
+    "Fixed-width and string-keyed group-bys above it stream in windows "
+    "of mesh.streamWindowRows; other stages keep the local exchanges.",
+    2 * 1024 * 1024 * 1024, parse_bytes)
+
+MESH_STREAM_WINDOW_ROWS = ConfEntry(
+    "spark.rapids.tpu.sql.mesh.streamWindowRows",
+    "Rows per worker per round of the streaming mesh group-by (stages "
+    "above mesh.maxStageBytes): a round holds workers x window input rows "
+    "plus the group accumulator.",
+    1 << 17, _at_least(1024))
+
+MESH_WORKERS = ConfEntry(
+    "spark.rapids.torch.mesh.workers",
+    "Workers of the mesh, placed round robin on the visible devices of the "
+    "session's device type (the counterpart of the XLA flag "
+    "--xla_force_host_platform_device_count the reference's tests set). "
+    "Workers that share a device exchange through one transpose. Default: "
+    "the number of those devices.",
+    None, _at_least(1))
+
+
 def matmul_agg_enabled(conf: "TorchConf", device) -> bool:
     """AGG_MATMUL resolved for a device (the reference's
     _matmul_agg_enabled)."""

@@ -52,7 +52,8 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "string_place", "find_pattern_locate", "masked_reduce_fold",
            "fused_stage", "fused_reduce", "window_rank", "window_offset",
            "segmented_scan", "frame_bounds", "frame_aggregate",
-           "explode_expand", "split_parts", "map_lookup", "map_build")
+           "explode_expand", "split_parts", "map_lookup", "map_build",
+           "exchange_bucket", "exchange_flatten")
 LIBRARY_OF = {"join_expand_outer": "join_expand",
               "find_pattern_locate": "find_pattern",
               "masked_reduce_fold": "masked_reduce",
@@ -82,6 +83,12 @@ class KeyDesc(ctypes.Structure):
     _fields_ = [("data", _P), ("valid", _P), ("lengths", _P),
                 ("kind", _I), ("width", _I), ("len_bits", _I),
                 ("ascending", _I), ("nulls_first", _I), ("pad", _I)]
+
+
+class ExchangeArray(ctypes.Structure):
+    """Mirror of ``exch::Array`` in csrc/exchange_common.cuh."""
+    _fields_ = [("src", _P), ("dst", _P), ("row_bytes", _L), ("unit", _I),
+                ("pad", _I)]
 
 
 class Operand(ctypes.Structure):
@@ -204,6 +211,17 @@ _SIGNATURES = {
     "map_lookup": {
         "map_lookup": (_I, [_P, _P, _P, _L, _I, _I, _P, _P, _I, _L,
                             ctypes.c_double, _I, _I, _P, _P, _P]),
+    },
+    "exchange_bucket": {
+        "exchange_bucket_max_arrays": (_I, []),
+        "exchange_bucket_max_workers": (_I, []),
+        "exchange_bucket": (_I, [ctypes.POINTER(ExchangeArray), _I, _P, _P,
+                                 _I, _L, _P]),
+    },
+    "exchange_flatten": {
+        "exchange_flatten_max_arrays": (_I, []),
+        "exchange_flatten": (_I, [ctypes.POINTER(ExchangeArray), _I, _P, _I,
+                                  _L, _L, _P, _P]),
     },
     "map_build": {
         "map_build_max_pairs": (_I, []),

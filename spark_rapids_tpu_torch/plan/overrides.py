@@ -15,9 +15,12 @@ plan), with struct columns read only through their fields shredded into
 flat scan columns and the reference's nested type gate, then collapses
 the remaining filter/project chains into whole stages
 (plan/stage_compiler.py), inserts the batch-coalescing transitions and
-attaches each fused unit's generated kernel. These are
-the reference's plans without adaptive execution and without a device
-mesh.
+attaches each fused unit's generated kernel. With a mesh active
+(``spark.rapids.tpu.sql.mesh.enabled``, parallel/mesh.py) a supported
+group-by, a global sort and a shuffled join each become one SPMD stage
+(parallel/mesh_exec.py), and exchanges take the mesh's plane per
+``spark.rapids.tpu.sql.shuffle.plane``. These are the reference's plans
+without adaptive execution.
 The port has no CPU engine yet, so anything else raises
 NotImplementedError naming the operator: nothing runs on the host in its
 place. So does an ``incompat`` expression (Upper, Lower, InitCap: ASCII-only
@@ -114,10 +117,17 @@ class Overrides:
             if any(l.distinct for l in leaves):
                 return self._convert_distinct_agg(p, kids[0], leaves)
             return self._make_aggregate(kids[0], p.grouping,
-                                        p.aggregate_exprs)
+                                        p.aggregate_exprs,
+                                        p.children[0].stats_bytes())
         if isinstance(p, lp.Join):
             return self._convert_join(p, kids)
         if isinstance(p, lp.Sort):
+            # (the port's Sort is always global)
+            mesh = self._mesh_for_stage(p.children[0].stats_bytes())
+            if mesh is not None:
+                # SPMD sort: sample -> bounds -> all_to_all -> local sort
+                from ..parallel.mesh_exec import TpuMeshSortExec
+                return TpuMeshSortExec(kids[0], p.orders, mesh)
             if kids[0].output_partitions > 1:
                 # distributed sort: range-partition on sampled bounds, then
                 # sort each partition: partition order + local order =
@@ -131,8 +141,9 @@ class Overrides:
         if isinstance(p, lp.Limit):
             return ph.TpuLimitExec(kids[0], p.n)
         if isinstance(p, lp.Repartition):
-            return TpuShuffleExchangeExec(kids[0], p.num_partitions, p.by,
-                                          split_depth=self.split_depth)
+            return TpuShuffleExchangeExec(
+                kids[0], p.num_partitions, p.by,
+                **self._exchange_kwargs(p.children[0].stats_bytes()))
         if isinstance(p, lp.Window):
             _check_window(p, kids[0])
             return TpuWindowExec(kids[0], p.window_exprs)
@@ -141,8 +152,91 @@ class Overrides:
         raise NotImplementedError(
             f"{p.name} is not ported to the PyTorch engine yet")
 
-    def _make_aggregate(self, child: ph.TpuExec, grouping, outputs
-                        ) -> ph.TpuExec:
+    def _mesh(self):
+        """The active mesh, if mesh execution is on (once per plan). A
+        forced 'true' that cannot build one raises."""
+        if not hasattr(self, "_mesh_cache"):
+            from ..parallel.mesh import maybe_mesh
+            self._mesh_cache = maybe_mesh(self.conf, self.device)
+        return self._mesh_cache
+
+    def _mesh_for_stage(self, *stats: int):
+        """The mesh for a stage whose inputs are estimated at ``stats``
+        bytes: None above mesh.maxStageBytes (the SPMD stage stages its
+        whole input and sizes receive windows at workers x cap)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return None
+        if sum(stats) > int(self.conf.get(cfg.MESH_MAX_STAGE_BYTES)):
+            return None
+        return mesh
+
+    def _exchange_kwargs(self, *stats: int) -> dict:
+        """Plan-time plane of one exchange (spark.rapids.tpu.sql.shuffle.
+        plane): 'auto' hands the exchange the mesh when the stage is small
+        enough (it resolves the plane per run), 'ici' forces the mesh and
+        raises at plan time without one, 'dcn' pins the local split."""
+        plane = self.conf.get(cfg.SHUFFLE_PLANE)
+        if plane == "dcn":
+            mesh = None
+        elif plane == "ici":
+            mesh = self._mesh()            # forced: the size gate yields
+            if mesh is None:
+                raise RuntimeError(
+                    f"{cfg.SHUFFLE_PLANE.key}=ici but no mesh is active: "
+                    f"enable {cfg.MESH_ENABLED.key} or use auto/dcn")
+        else:
+            mesh = self._mesh_for_stage(*stats)
+        return dict(plane=plane, mesh=mesh, split_depth=self.split_depth)
+
+    def _try_mesh_aggregate(self, child: ph.TpuExec, grouping, outputs,
+                            stats_bytes: int) -> Optional[ph.TpuExec]:
+        """A supported group-by as one SPMD stage: keyed, non-distinct,
+        each output a grouping column or a bare sum/count/avg/min/max leaf
+        (first/last stay on the local plan: their distributed result
+        would depend on the shard order). Above mesh.maxStageBytes it
+        streams (fixed-width inputs; string keys through their words)."""
+        mesh = self._mesh_for_stage(stats_bytes)
+        window_rows = None
+        if mesh is None:
+            mesh = self._mesh()
+            if mesh is None:
+                return None
+            window_rows = int(self.conf.get(cfg.MESH_STREAM_WINDOW_ROWS))
+        if not grouping:
+            return None
+        from ..parallel import mesh_exec as me
+        for e in outputs:
+            inner = e.children[0] if isinstance(e, ex.Alias) else e
+            if isinstance(inner, lp.AggregateExpression):
+                if inner.distinct or inner.op not in me.MESH_AGG_OPS:
+                    return None
+                if inner.children and inner.children[0].dtype == dt.STRING \
+                        and inner.op not in ("count",):
+                    return None
+            else:
+                try:
+                    me._grouping_index(inner, grouping)
+                except ValueError:
+                    return None
+        if window_rows is not None:
+            for g in grouping:
+                if g.dtype.var_width and g.dtype != dt.STRING:
+                    return None
+            for e in outputs:
+                inner = e.children[0] if isinstance(e, ex.Alias) else e
+                if isinstance(inner, lp.AggregateExpression) and \
+                        inner.children and inner.children[0].dtype.var_width:
+                    return None
+        return me.TpuMeshGroupByExec(child, grouping, outputs, mesh,
+                                     window_rows=window_rows)
+
+    def _make_aggregate(self, child: ph.TpuExec, grouping, outputs,
+                        stats_bytes: int) -> ph.TpuExec:
+        mesh_exec = self._try_mesh_aggregate(child, grouping, outputs,
+                                             stats_bytes)
+        if mesh_exec is not None:
+            return mesh_exec
         # the fusable chain below folds into the update (stage fusion on);
         # with it off, the reference folds a single filter only
         members = []
@@ -171,13 +265,13 @@ class Overrides:
         partial = mark(ph.TpuHashAggregateExec(
             child, grouping, outputs, pre_stage=pre_stage, mode="partial",
             **kw))
+        xkw = self._exchange_kwargs(stats_bytes)
         if grouping:
             keys = [ex.ColumnRef(f"_k{i}") for i in range(len(grouping))]
             exch = TpuHashExchangeExec(partial, self.shuffle_partitions, keys,
-                                       split_depth=self.split_depth)
+                                       **xkw)
         else:
-            exch = TpuShuffleExchangeExec(partial, 1,
-                                          split_depth=self.split_depth)
+            exch = TpuShuffleExchangeExec(partial, 1, **xkw)
         return ph.TpuHashAggregateExec(exch, grouping, outputs,
                                        mode="final", per_partition_final=True,
                                        **kw)
@@ -226,7 +320,9 @@ class Overrides:
                     l.op, l.children[0] if l.children else None,
                     ignore_nulls=l.ignore_nulls), f"_nd{i}"))
                 nd_parts[i] = [f"_nd{i}"]
-        inner = self._make_aggregate(child, inner_grouping, inner_outputs)
+        stats = p.children[0].stats_bytes()
+        inner = self._make_aggregate(child, inner_grouping, inner_outputs,
+                                     stats)
 
         def ref(name: str) -> ex.ColumnRef:
             return ex.ColumnRef(name).resolve(inner.schema)
@@ -265,7 +361,8 @@ class Overrides:
         outer_grouping = [ref(f"_g{i}") for i in range(len(p.grouping))]
         outer_outputs = [ex.Alias(rewrite(e), ex.output_name(e, i))
                          for i, e in enumerate(p.aggregate_exprs)]
-        return self._make_aggregate(inner, outer_grouping, outer_outputs)
+        return self._make_aggregate(inner, outer_grouping, outer_outputs,
+                                    stats)
 
     def _convert_join(self, p: lp.Join, kids) -> ph.TpuExec:
         """A cross join, or a join with no condition or no equality key,
@@ -286,21 +383,24 @@ class Overrides:
         left, right = kids
         if p.how == "cross" or p.condition is None or not lk:
             return ph.TpuCrossJoinExec(left, right, p.condition)
+        lstats = p.children[0].stats_bytes()
+        rstats = p.children[1].stats_bytes()
         if p.how == "right":
             inner = self._plan_equi_join(
-                right, left, "left", rk, lk, None,
-                build_stats=p.children[0].stats_bytes())
+                right, left, "left", rk, lk, None, build_stats=lstats,
+                stream_stats=rstats)
             return _ReorderExec(inner, p.schema, len(rnames))
         return self._plan_equi_join(left, right, p.how, lk, rk, residual,
-                                    build_stats=p.children[1].stats_bytes())
+                                    build_stats=rstats, stream_stats=lstats)
 
     def _plan_equi_join(self, stream: ph.TpuExec, build: ph.TpuExec,
                         how: str, stream_keys, build_keys, residual,
-                        build_stats: int) -> ph.TpuExec:
+                        build_stats: int, stream_stats: int) -> ph.TpuExec:
         """A build side whose size estimate is at or under
         ``autoBroadcastJoinThreshold`` (-1: never) is broadcast; a larger
         one hash-exchanges both sides into a co-partitioned shuffled
-        join."""
+        join, or, with a mesh active and both sides under
+        mesh.maxStageBytes, is one SPMD join (TpuMeshJoinExec)."""
         threshold = int(self.conf.get(cfg.AUTO_BROADCAST_JOIN_THRESHOLD))
         if 0 <= threshold and build_stats <= threshold:
             return ph.TpuSortMergeJoinExec(
@@ -318,12 +418,18 @@ class Overrides:
                     pk_build[i] = b if b.dtype == t else Cast(b, t)
         except ValueError:
             pass
+        mesh = self._mesh_for_stage(build_stats, stream_stats)
+        if mesh is not None:
+            # SPMD co-partition: one all_to_all per side
+            from ..parallel.mesh_exec import TpuMeshJoinExec
+            return TpuMeshJoinExec(stream, build, how, stream_keys,
+                                   build_keys, residual, mesh, pk_stream,
+                                   pk_build)
         n = self.shuffle_partitions
+        xkw = self._exchange_kwargs(build_stats, stream_stats)
         return ph.TpuShuffledJoinExec(
-            TpuHashExchangeExec(stream, n, pk_stream,
-                                split_depth=self.split_depth),
-            TpuHashExchangeExec(build, n, pk_build,
-                                split_depth=self.split_depth),
+            TpuHashExchangeExec(stream, n, pk_stream, **xkw),
+            TpuHashExchangeExec(build, n, pk_build, **xkw),
             how, stream_keys, build_keys, residual)
 
     def _insert_coalesce(self, node: ph.TpuExec) -> ph.TpuExec:

@@ -10,12 +10,22 @@ is parked on a PipelineWindow at ``spark.rapids.tpu.sql.shuffle.pipelineDepth``,
 so a map phase of B batches reads its counts in about 2B/depth batched
 copies instead of B.
 
+With a mesh active (parallel/mesh.py) a shuffle or hash exchange may take
+the ICI plane instead (``spark.rapids.tpu.sql.shuffle.plane``): the child
+is cut into one shard per worker, every row goes to the worker owning its
+reduce partition (partition ``p`` on worker ``p % n``) in one all_to_all,
+and each worker's rows come back ordered by partition, so a partition is
+one slice of its owner's rows. The counts are the exchange's one read. A
+forced ``ici`` that cannot run raises; ``auto`` takes the local split
+without a mesh, for one partition, or for nested columns. (The
+reference's multi-process workers and its mesh-loss fault, which fall
+back to its DCN plane, are not ported.)
+
 There are no spill tiers yet: every piece stays on the device until its
 partition is read (then the reduce side holds it) or the exchange is
 released. Map tasks drain one upstream partition after another (the
 reference runs them on exec/tasks.py's thread pool). There is no adaptive
-coalescing, skew split or mesh plane: one reduce partition per output
-partition.
+coalescing or skew split: one reduce partition per output partition.
 """
 
 from __future__ import annotations
@@ -87,12 +97,15 @@ class TpuShuffleExchangeExec(ph.TpuExec):
 
     def __init__(self, child: ph.TpuExec, num_partitions: int,
                  by: Optional[List[ex.Expression]] = None,
-                 split_depth: int = 8):
+                 split_depth: int = 8, plane: str = "auto", mesh=None):
         super().__init__(child)
         self.num_partitions = max(1, int(num_partitions))
         self.by = [ph.bind_refs(e, child.schema) for e in by] if by else None
         self.split_depth = split_depth
+        self.plane = plane
+        self.mesh = mesh
         self._shuffle: Optional[LocalShuffle] = None
+        self._ici_results = None
         # the map phase's last window (its batched count reads)
         self.window: Optional[PipelineWindow] = None
 
@@ -127,9 +140,75 @@ class TpuShuffleExchangeExec(ph.TpuExec):
         coalescing)."""
         return [[p] for p in range(shuffle.num_partitions)]
 
+    # -- plane routing -------------------------------------------------------
+
+    def _ici_capable(self) -> bool:
+        """The ICI exchange carries flat primitive and string columns;
+        nested layouts stay on the local split."""
+        return all(not f.dtype.var_width or f.dtype == dt.STRING
+                   for f in self.schema)
+
+    def _resolve_plane(self) -> str:
+        """'ici' or 'dcn' for this execution. ``auto`` takes the mesh
+        exactly when the planner handed one over and the shape qualifies;
+        a forced ``ici`` that cannot run raises, never downgrades."""
+        plane = (self.plane or "auto").lower()
+        if plane == "dcn":
+            return "dcn"
+        forced = plane == "ici"
+        if self.mesh is None or self.mesh.size < 2:
+            if forced:
+                raise RuntimeError(
+                    "spark.rapids.tpu.sql.shuffle.plane=ici but no mesh is "
+                    "active (spark.rapids.tpu.sql.mesh.enabled)")
+            return "dcn"
+        if self.num_partitions == 1:
+            return "dcn"          # a single sink: nothing to exchange
+        if not self._ici_capable():
+            if forced:
+                raise RuntimeError(
+                    "spark.rapids.tpu.sql.shuffle.plane=ici but the "
+                    f"exchange schema [{self.schema}] carries nested "
+                    "columns the mesh's exchange cannot move")
+            return "dcn"
+        return "ici"
+
+    def would_use_ici(self) -> bool:
+        """The plane this exchange takes if executed now."""
+        return self._resolve_plane() == "ici"
+
+    def _execute_ici(self) -> List[ph.Partition]:
+        """Device exchange over the mesh: shard the child, route every row
+        to its reduce partition's owner in one all_to_all, and slice each
+        worker's partition-sorted rows into the partitions it owns. The
+        one read is the [n, num_partitions] counts."""
+        from ..parallel import mesh as M
+        from ..parallel.mesh_exec import on_device, shard_for_mesh
+        n = self.mesh.size
+        shards = shard_for_mesh(self.children[0], n)
+        partitioner = self._make_partitioner()
+        pids = [partitioner.partition_ids(s) for s in shards]
+        self._ici_results = M.run_partition_exchange(
+            self.mesh, shards, pids, self.num_partitions)
+
+        def gen(p: int) -> ph.Partition:
+            cols_w, counts_w = self._ici_results[p % n]
+            count = int(counts_w[p])
+            if count <= 0:
+                return
+            offset = int(counts_w[:p].sum())
+            pcap = bucket(count)
+            cols = [K.slice_column(c, offset, pcap, count) for c in cols_w]
+            yield on_device(ColumnarBatch(self.schema, cols, count),
+                            self.device)
+
+        return [gen(p) for p in range(self.num_partitions)]
+
     def execute(self) -> List[ph.Partition]:
         """Runs the map phase now; the partitions read lazily."""
         self.release()
+        if self._resolve_plane() == "ici":
+            return self._execute_ici()
         shuffle = self._shuffle = LocalShuffle(self.num_partitions)
         self._run_map_phase(shuffle)
         return [self._read_group(shuffle, g)
@@ -142,9 +221,15 @@ class TpuShuffleExchangeExec(ph.TpuExec):
 
     def release(self) -> None:
         """Drop the pieces no consumer read."""
+        self._ici_results = None
         if self._shuffle is not None:
             self._shuffle.close_pending()
             self._shuffle = None
+
+    def _node_string(self):
+        if self.mesh is None:
+            return self.name
+        return f"{self.name}[plane={self.plane}, workers={self.mesh.size}]"
 
 
 class TpuHashExchangeExec(TpuShuffleExchangeExec):
@@ -152,9 +237,10 @@ class TpuHashExchangeExec(TpuShuffleExchangeExec):
     partial -> final step of a grouped aggregate."""
 
     def __init__(self, child: ph.TpuExec, num_partitions: int,
-                 keys: List[ex.Expression], split_depth: int = 8):
+                 keys: List[ex.Expression], split_depth: int = 8,
+                 plane: str = "auto", mesh=None):
         super().__init__(child, num_partitions, by=keys,
-                         split_depth=split_depth)
+                         split_depth=split_depth, plane=plane, mesh=mesh)
 
 
 class TpuRangeExchangeExec(ph.TpuExec):

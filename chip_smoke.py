@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
      timed; every kernel is rebuilt, whatever _build/ already holds; then
      the generated stage kernels of the main path's plans (planned over
      tiny tables) compiled by NVRTC and loaded, counted and timed;
-  3. each kernel (K1-K30, K7's outer mode, K13's locate mode, K1's fold
-     alone and K21's offset mode) against
+  3. each kernel (K1-K30, K6's lower-bound mode, K7's outer mode, K13's
+     locate mode, K1's fold alone and K21's offset mode) against
      its plain PyTorch twin on the card, at the main path's shapes and at
      edge cases, with the stated tolerance,
      plus CUDA-event timings of kernel, twin and (where one exists) the
@@ -22,9 +22,17 @@ Phases, each printing one JSON line:
      reduces shuffled ids over 5000 segments (the sort first), K13
      (find_pattern) runs over o_comment bytes with junk past the lengths,
      K7's outer mode and K14 (build_matched) at one partition of q13's
-     join, K15 (cross_expand) with empty sides, and once the main path
-     has run, at the shapes its cold runs of q11 and q15 gave K15
-     (recorded where the engine calls the wrapper); K16 (string_map), K17
+     join, K6 (join_probe) in both modes at 1-5 and 16 lanes, hot keys,
+     unique keys, probes past either end, with host-int and device
+     counts, timed at q3's second join; K15 (cross_expand) with empty
+     sides and divisors with and without the add step, timed at q11's and
+     q15's shapes; K6 and K15 with host-int counts under
+     torch.cuda.set_sync_debug_mode("error") (no synchronize) and their
+     registers and stack from nvcc -Xptxas -v (every K6 specialisation
+     without stack frame or spills); once the main path has run, K15 at
+     the shapes its cold runs of q11 and q15 gave it and K6 at its largest
+     full and lower-bound calls (recorded where the engine calls the
+     wrappers); K16 (string_map), K17
      (string_slice), K18 (string_place) and K13's locate mode over random
      UTF-8 rows (1-4-byte characters, leading continuation bytes, junk
      past the lengths, NULL and dead rows) at widths 8 to 256, and timed
@@ -164,6 +172,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_pair_ms(fn_a, fn_b, iters: int = 100) -> tuple:
+    """(median of ``fn_a``, median of ``fn_b``): CUDA-event times of one
+    call each, the two called in turns (a b, b a, ...) so that neither
+    meets the host in a better state; for calls whose time is host time."""
+    import torch
+    for _ in range(3):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(iters):
+        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fn_a, fn_b)[k]()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def bound_ms(nbytes: float) -> float:
@@ -665,17 +695,191 @@ def _join_key_cases(rng, device):
     return cases
 
 
+# K6's and K15's register and stack use, from ``nvcc -Xptxas -v`` on their
+# sources (the same flags as the build, to a cubin)
+PTXAS_SOURCES = ("join_probe", "cross_expand")
+_PTXAS: dict = {}
+
+
+def ptxas_usage(name: str) -> list:
+    """[{kernel, registers, stack_bytes, spill_stores, spill_loads}] of
+    every kernel entry of csrc/<name>.cu; the sources of PTXAS_SOURCES
+    compile together, once, on first use."""
+    import tempfile
+    from spark_rapids_tpu_torch import native
+    if name not in _PTXAS:
+        native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+            procs = {src: subprocess.Popen(
+                [native.nvcc_path(), *native.ARCH_FLAGS, "-std=c++17", "-O3",
+                 "-cubin", "-Xptxas", "-v", "-I", str(native.CSRC), "-o",
+                 f"{tmp}/{src}.cubin", str(native.CSRC / f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src in PTXAS_SOURCES}
+            for src, proc in procs.items():
+                out, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc -Xptxas -v {src}:\n{out}")
+                _PTXAS[src] = _parse_ptxas(out)
+    return _PTXAS[name]
+
+
+def _parse_ptxas(out: str) -> list:
+    import re
+    usage, entry = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            entry = usage.setdefault(m.group(1), {"kernel": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry is not None:
+            entry.update(stack_bytes=int(m.group(1)),
+                         spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+    for e in usage.values():
+        m = re.search(r"probe_kernelILi(\d+)ELb([01])E", e["kernel"])
+        if m:
+            e["kernel"] = (f"probe_kernel<{m.group(1)}, "
+                           f"{'lower' if m.group(2) == '1' else 'full'}>")
+        m = re.search(r"cross_kernelI([jx])E", e["kernel"])
+        if m:
+            e["kernel"] = ("cross_kernel<unsigned>" if m.group(1) == "j"
+                           else "cross_kernel<long long>")
+    return [e for e in usage.values() if "registers" in e]
+
+
+@contextlib.contextmanager
+def no_sync():
+    """Inside the block, any CUDA synchronize PyTorch makes raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_detector_works(device) -> None:
+    """The detector raises on the copy the wrappers used to make: a host
+    int uploaded as a count tensor."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    try:
+        with no_sync():
+            K._count_tensor(5, device)
+    except RuntimeError:
+        return
+    raise AssertionError("set_sync_debug_mode('error') let a pageable "
+                         "host -> device copy pass")
+
+
+def k6_bytes(nl: int, n_build: int, n_probe: int, pcap: int, n_valid: int,
+             lower: bool) -> int:
+    """What K6 must move at least: every probe row's ``nl`` 8-byte lanes
+    read (lo is defined for every row of the capacity ``pcap``) and, in the
+    full mode, its ``n_valid`` validity bytes; lo (and count) written for
+    every row, and the totals; of the sorted build, at most its live rows'
+    lanes and at most one 32-byte sector (one row, when wider) a live
+    probe row: each search reads at least the row next to its answer."""
+    row = 8 * nl
+    build = min(n_build * row, n_probe * max(32, row))
+    if lower:
+        return pcap * (row + 4) + build
+    return pcap * (row + n_valid + 4 + 4) + build + 16
+
+
+def _raw_lane_cases(rng, device):
+    """(name, sorted build lanes, n_build, probe lanes, validities, n_probe):
+    raw lanes of every specialisation's lane count (1-4, 5 and 16 for the
+    general one), small values so rows tie on leading lanes; builds of a
+    few rows (the whole search in shared memory, lane-major) and of 300 K
+    (a sample stride past 1, row-major); NULL probe keys; probes below and
+    above every build row; a hot key of 100 K rows; unique keys."""
+    import torch
+    from spark_rapids_tpu_torch.ops import kernels as K
+    cases = []
+
+    def build_of(vals, cap):
+        """Sorted lanes, lane-major below 2^16 rows, row-major (as
+        sort_build gives them) above."""
+        lanes = torch.zeros((vals.shape[0], cap), dtype=torch.int64,
+                            device=device)
+        n = vals.shape[1]
+        lanes[:, :n] = torch.from_numpy(vals).to(device)
+        order = K.lanes_order(lanes[:, :n])
+        lanes[:, :n] = lanes[:, :n][:, order]
+        return lanes if cap < 1 << 16 else lanes.t().contiguous().t()
+
+    for nl in (1, 2, 3, 4, 5, 16):
+        for n_b, bcap in ((1000, 1024), (300_000, 1 << 19)):
+            n_p, pcap = 200_000, 1 << 18
+            hi = 6 if nl > 1 else 400
+            bv = rng.integers(0, hi, (nl, n_b))
+            pv = rng.integers(-1, hi + 1, (nl, pcap))
+            valid = [torch.from_numpy(rng.random(pcap) > 0.1).to(device)
+                     for _ in range(min(nl, 8))]
+            cases.append((f"{nl} lanes, {n_b} build rows",
+                          build_of(bv, bcap), n_b,
+                          torch.from_numpy(pv).to(device).contiguous(),
+                          valid, n_p))
+    n_b, bcap, pcap = 1 << 20, 1 << 20, 1 << 18
+    hot = np.sort(np.concatenate([rng.integers(0, 50_000, n_b - 100_000),
+                                  np.full(100_000, 25_000)]))
+    probe = rng.integers(-5, 50_005, pcap)
+    probe[::7] = 25_000
+    probe[1::11] = -10**12
+    probe[2::13] = 10**12
+    for name, bv in (("hot key of 100 K rows", hot),
+                     ("unique keys", rng.permutation(n_b))):
+        cases.append((f"2 lanes, {name}", build_of(
+            np.stack([np.zeros(n_b, np.int64), bv]), bcap), n_b,
+            torch.from_numpy(np.stack([np.zeros(pcap, np.int64), probe])
+                             ).to(device).contiguous(), [], pcap - 3))
+    return cases
+
+
+def _k6_both(lanes, n_build, plane, pvalid, n_probe, what: str) -> None:
+    """K6 against its twin in both modes; the lower mode's lo equal to
+    the full mode's; host-int and 0-d device counts alike."""
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    got = J.join_probe(lanes, n_build, plane, pvalid, n_probe)
+    _probe_err(got, J._join_probe_torch(lanes, n_build, plane, pvalid,
+                                        n_probe), what)
+    lower, _, _ = J.join_probe(lanes, n_build, plane, pvalid, n_probe,
+                               lower_only=True)
+    tensor_err(lower, got[0], f"{what} lower-only lo vs full lo")
+    tensor_err(lower, J._join_probe_torch(lanes, n_build, plane, pvalid,
+                                          n_probe, lower_only=True)[0],
+               f"{what} lower-only lo vs twin")
+    on_device = J.join_probe(lanes, torch.tensor(n_build, device=lanes.device),
+                             plane, pvalid,
+                             torch.tensor(n_probe, device=lanes.device))
+    _probe_err(on_device, got, f"{what} 0-d tensor counts")
+
+
 def check_k6(device, rng) -> dict:
     import torch
     from spark_rapids_tpu_torch.ops import joins as J
+    usage = ptxas_usage("join_probe")
+    if len(usage) != 10 or any(u["stack_bytes"] or u["spill_stores"] or
+                               u["spill_loads"] for u in usage):
+        raise AssertionError(f"K6's specialisations: {usage}")
     checks = 0
     for name, bk, nb, sk, ns in _join_key_cases(rng, device):
         widths = J.pair_widths(bk, sk)
         side = J.sort_build(J.widen_keys(bk, widths), nb)
         plane, pvalid = J._normalize_words(J.widen_keys(sk, widths))
-        _probe_err(J.join_probe(side.lanes, nb, plane, pvalid, ns),
-                   J._join_probe_torch(side.lanes, nb, plane, pvalid, ns),
-                   f"K6 {name}")
+        _k6_both(side.lanes, nb, plane, pvalid, ns, f"K6 {name}")
+        checks += 1
+    for name, lanes, nb, plane, pvalid, ns in _raw_lane_cases(rng, device):
+        _k6_both(lanes, nb, plane, pvalid, ns, f"K6 {name}")
         checks += 1
     # the main path's shape: q3's second join
     n_build, n_probe, pcap = Q3_BUILD_ROWS, Q3_PROBE_ROWS, Q3_PROBE_CAP
@@ -684,6 +888,10 @@ def check_k6(device, rng) -> dict:
     got = J.join_probe(side.lanes, n_build, plane, pvalid, n_probe)
     err = _probe_err(got, J._join_probe_torch(side.lanes, n_build, plane,
                                                pvalid, n_probe), "K6 q3")
+    lower, _, _ = J.join_probe(side.lanes, n_build, plane, pvalid, n_probe,
+                               lower_only=True)
+    tensor_err(lower, got[0], "K6 q3 lower-only lo vs full lo")
+    nl = plane.shape[0]
     srt = torch.sort(torch.from_numpy(bvals).to(device)).values
     pv = torch.from_numpy(pvals).to(device)
     lib_lo = torch.searchsorted(srt, pv, side="left")
@@ -692,14 +900,32 @@ def check_k6(device, rng) -> dict:
             not torch.equal((lib_hi - lib_lo).to(torch.int32),
                             got[1][:n_probe]):
         raise AssertionError("K6 disagrees with torch.searchsorted")
-    # what the function needs, whatever the kernel reads: each live probe
-    # row's int64 key and validity read and its lo and count written, at
-    # most one 8-byte key per live build row read, the total written
-    bytes_needed = n_probe * (8 + 1 + 4 + 4) + n_build * 8 + 8
+    # host-int counts: no synchronize in either mode
+    sync_detector_works(device)
+    with no_sync():
+        J.join_probe(side.lanes, n_build, plane, pvalid, n_probe)
+        J.join_probe(side.lanes, n_build, plane, pvalid, n_probe,
+                     lower_only=True)
+    checks += 4
+    lower_r = {
+        "name": "join_probe_lower", "checks": checks, "max_abs_err": 0.0,
+        "tolerance": "exact (lo)", "n_build": n_build, "n_probe": n_probe,
+        "timed_at_shape": "q3's second join",
+        "ms": time_ms(lambda: J.join_probe(side.lanes, n_build, plane,
+                                           pvalid, n_probe,
+                                           lower_only=True)),
+        "plain_ms": time_ms(lambda: J._join_probe_torch(
+            side.lanes, n_build, plane, pvalid, n_probe, lower_only=True),
+            iters=5),
+        "library_ms": time_ms(lambda: torch.searchsorted(srt, pv,
+                                                         side="left")),
+        "bound_ms": bound_ms(k6_bytes(nl, n_build, n_probe, pcap,
+                                      len(pvalid), True))}
     return {
-        "name": "join_probe", "checks": checks + 2, "max_abs_err": err,
-        "tolerance": "exact (lo, count, total)", "lanes": plane.shape[0],
-        "n_build": n_build, "n_probe": n_probe,
+        "name": "join_probe", "checks": checks, "max_abs_err": err,
+        "tolerance": "exact (lo, count, total)", "lanes": nl,
+        "n_build": n_build, "n_probe": n_probe, "no_sync": True,
+        "ptxas": usage,
         "ms": time_ms(lambda: J.join_probe(side.lanes, n_build, plane,
                                            pvalid, n_probe)),
         "plain_ms": time_ms(lambda: J._join_probe_torch(
@@ -707,8 +933,87 @@ def check_k6(device, rng) -> dict:
         "library_ms": time_ms(lambda: (
             torch.searchsorted(srt, pv, side="left"),
             torch.searchsorted(srt, pv, side="right"))),
-        "bound_ms": bound_ms(bytes_needed),
+        "bound_ms": bound_ms(k6_bytes(nl, n_build, n_probe, pcap,
+                                      len(pvalid), False)),
+        "modes": [lower_r],
     }
+
+
+def _main_probe_inputs(device, nl: int, bcap: int, n_build: int, pcap: int,
+                       seed: int):
+    """Lanes at a recorded main-path shape: the leading lanes zero, the
+    last a key, the build sorted (row-major); about two build rows a
+    key."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    key_range = max(1, n_build // 2)
+    build = torch.zeros((nl, bcap), dtype=torch.int64, device=device)
+    build[-1, :n_build] = torch.sort(torch.randint(
+        0, key_range, (n_build,), generator=g, device=device)).values
+    build[-1, n_build:] = key_range       # padding sorts last
+    probe = torch.zeros((nl, pcap), dtype=torch.int64, device=device)
+    probe[-1] = torch.randint(0, key_range, (pcap,), generator=g,
+                              device=device)
+    return build.t().contiguous().t(), probe    # row-major, as sort_build
+
+
+TIMES = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def check_k6_main(device, calls: list) -> dict:
+    """K6 at the main path's largest full-mode call and its largest
+    lower-bound-mode call (range ids) of the counted run, by probe
+    capacity: checked against the twin and timed, with the library call
+    beside it; the range ids' build lane-major, as they pass it, and timed
+    again transposed to row-major first."""
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    timed = {}
+    for lower in (False, True):
+        mine = [c for c in calls if c[5] == lower]
+        if not mine:
+            raise AssertionError(f"no {'lower' if lower else 'full'}-mode "
+                                 "join_probe call in the counted run")
+        nl, bcap, n_build, pcap, n_probe, _ = max(
+            mine, key=lambda c: (c[3], c[1]))
+        n_build, n_probe = int(n_build), int(n_probe)
+        build, probe = _main_probe_inputs(device, nl, bcap, n_build, pcap,
+                                          7)
+        if lower:
+            build = build.contiguous()    # K2's lanes, as the range ids
+        twin = J._join_probe_torch(build, n_build, probe, [], n_probe, lower)
+        got = J.join_probe(build, n_build, probe, [], n_probe,
+                           lower_only=lower)
+        for g, w, what in zip(got, twin, ("lo", "count", "total")):
+            if w is not None:
+                tensor_err(g, w, f"K6 main-path shape {what}")
+        srt = build[-1, :n_build].contiguous()
+        key = probe[-1, :min(n_probe, pcap)]
+
+        def library():
+            if lower:
+                return torch.searchsorted(srt, key, side="left")
+            return (torch.searchsorted(srt, key, side="left"),
+                    torch.searchsorted(srt, key, side="right"))
+        timed["lower" if lower else "full"] = {
+            "lanes": nl, "build_capacity": bcap, "n_build": n_build,
+            "probe_capacity": pcap, "n_probe": n_probe,
+            "ms": time_ms(lambda: J.join_probe(build, n_build, probe, [],
+                                               n_probe, lower_only=lower)),
+            "plain_ms": time_ms(lambda: J._join_probe_torch(
+                build, n_build, probe, [], n_probe, lower), iters=5),
+            "library_ms": time_ms(library),
+            "bound_ms": bound_ms(k6_bytes(nl, n_build, min(n_probe, pcap),
+                                          pcap, 0, lower))}
+        if lower:
+            # what a row-major-only kernel would cost the range ids: the
+            # lanes transposed before the call
+            timed["lower"]["ms_transposed_first"] = time_ms(
+                lambda: J.join_probe(build.t().contiguous().t(), n_build,
+                                     probe, [], n_probe, lower_only=True))
+    return {"name": "join_probe", "main_path_calls": len(calls),
+            "timed_at_main_path": timed}
 
 
 def _expand_err(got, want, what: str) -> float:
@@ -1479,24 +1784,97 @@ def check_k14(device, rng) -> dict:
     }
 
 
+# K15's main-path shapes (n_left, n_right, out_capacity) at SF 10, as the
+# counted run records them: q11's one launch, q15's largest partition
+K15_Q11_SHAPE = (308_000, 1, 1 << 19)
+K15_Q15_SHAPE = (12_678, 1, 1 << 14)
+
+
+def _k15_against_twin(device, nl: int, nr: int, cap: int, what: str):
+    from spark_rapids_tpu_torch.ops import joins as J
+    got = J.cross_expand(nl, nr, cap, device)
+    for g, w, name in zip(got, J._cross_expand_torch(nl, nr, cap, device),
+                          ("left", "right", "total")):
+        tensor_err(g, w, f"K15 {what} {nl}x{nr} in {cap} {name}")
+    return got
+
+
+def k15_timing(device, nl: int, nr: int, cap: int) -> dict:
+    """K15's wrapper, its twin and floor division + remainder (their
+    arange and divisor made outside the timed call) at one shape."""
+    import torch
+    from spark_rapids_tpu_torch.ops import joins as J
+    ar = torch.arange(cap, device=device)
+    nr_t = torch.tensor(nr, device=device)
+
+    def library():
+        return (torch.div(ar, nr_t, rounding_mode="floor"),
+                torch.remainder(ar, nr_t))
+    # tens of microseconds of host time each: 200 calls a median, the
+    # kernel and the library call in turns
+    ms, library_ms = time_pair_ms(
+        lambda: J.cross_expand(nl, nr, cap, device), library, 200)
+    return {"n_left": nl, "n_right": nr, "out_capacity": cap, "ms": ms,
+            "plain_ms": time_ms(lambda: J._cross_expand_torch(
+                nl, nr, cap, device), 100),
+            "library_ms": library_ms,
+            # two int64 indices per output slot and the total written
+            "bound_ms": bound_ms(cap * 16 + 8)}
+
+
 def check_k15(device, rng) -> dict:
-    """K15 against its twin at the edge cases: empty sides, one slot, and
-    products that are not a multiple of a block. Its main-path shapes are
-    checked and timed by :func:`check_k15_main` once the counted run has
-    given them."""
+    """K15 against its twin at the edge cases (empty sides, one slot, the
+    smallest capacities, products that are not a multiple of a block; an
+    odd capacity refused) and at right sides whose divisor takes the
+    multiply-high with and without its add step, then with host-int counts
+    under the synchronize detector, and timed at q11's and q15's main-path
+    shapes. Its recorded main-path
+    shapes are checked again by :func:`check_k15_main` once the counted
+    run has given them."""
     from spark_rapids_tpu_torch.columnar.column import bucket
     from spark_rapids_tpu_torch.ops import joins as J
+    usage = ptxas_usage("cross_expand")
     checks = 0
     for nl, nr in ((0, 5), (5, 0), (0, 0), (1, 1), (7, 130), (130, 7),
-                   (1000, 1000), (1, 1 << 20)):
-        cap = bucket(max(nl * nr, 1))
-        got = J.cross_expand(nl, nr, cap, device)
-        for g, w, what in zip(got, J._cross_expand_torch(nl, nr, cap, device),
-                              ("left", "right", "total")):
-            tensor_err(g, w, f"K15 {nl}x{nr} {what}")
+                   (1000, 1000), (1, 1 << 20), (1 << 20, 1), (3, 3),
+                   (4097, 641), (1 << 12, (1 << 12) + 1)):
+        _k15_against_twin(device, nl, nr, bucket(max(nl * nr, 1)), "edge")
         checks += 1
+    # right sides of 2^31 - 1 and 2^32 - 1 rows (multiply-high), 2^32 rows
+    # (the 64-bit branch), over 2^20 live slots
+    for nl, nr in ((2, (1 << 31) - 1), (1, (1 << 32) - 1), (1, 1 << 32)):
+        _k15_against_twin(device, nl, nr, 1 << 20, "wide right side")
+        checks += 1
+    for cap in (2, 4, 130):
+        _k15_against_twin(device, 2, 63, cap, "small capacity")
+        checks += 1
+    try:
+        J.cross_expand(2, 63, 129, device)
+    except ValueError:
+        checks += 1
+    else:
+        raise AssertionError("K15 took an odd capacity")
+    # numerators past 2^31: the multiply-high over a slot count near 2^32
+    # is checked in tests (``_fast_divisor``); here n_right in 1..64 and
+    # random ones over 2^20 slots
+    for nr in list(range(1, 65)) + [int(x) for x in
+                                    rng.integers(65, 1 << 20, 16)]:
+        _k15_against_twin(device, -(-(1 << 20) // nr) + 3, nr, 1 << 20,
+                          "divisor")
+        checks += 1
+    sync_detector_works(device)
+    with no_sync():
+        J.cross_expand(*K15_Q11_SHAPE, device)
+        J.cross_expand(4097, 641, 1 << 22, device)
+    checks += 2
+    q11 = k15_timing(device, *K15_Q11_SHAPE)
     return {"name": "cross_expand", "checks": checks, "max_abs_err": 0.0,
-            "tolerance": "exact (indices, total)"}
+            "tolerance": "exact (indices, total)", "no_sync": True,
+            "ptxas": usage, **{k: q11[k] for k in ("ms", "plain_ms",
+                                                   "library_ms",
+                                                   "bound_ms")},
+            "timed_at": {"q11": q11,
+                         "q15": k15_timing(device, *K15_Q15_SHAPE)}}
 
 
 def check_k15_main(device, shapes: dict) -> dict:
@@ -1506,15 +1884,10 @@ def check_k15_main(device, shapes: dict) -> dict:
     its per-part sums against the threshold row) and at q15's largest
     partition (its supplier-join rows against the max row)."""
     import torch
-    from spark_rapids_tpu_torch.ops import joins as J
     checks, timed = 0, {}
     for query, calls in shapes.items():
         for nl, nr, cap in calls:
-            got = J.cross_expand(nl, nr, cap, device)
-            for g, w, what in zip(got, J._cross_expand_torch(nl, nr, cap,
-                                                             device),
-                                  ("left", "right", "total")):
-                tensor_err(g, w, f"K15 {query} {nl}x{nr} {what}")
+            got = _k15_against_twin(device, nl, nr, cap, query)
             ar = torch.arange(cap, device=device)
             lib = (torch.div(ar, nr, rounding_mode="floor"),
                    torch.remainder(ar, nr))
@@ -1523,22 +1896,7 @@ def check_k15_main(device, shapes: dict) -> dict:
                 raise AssertionError(f"K15 {query} disagrees with floor "
                                      "division and remainder")
             checks += 2
-        nl, nr, cap = max(calls)
-        ar = torch.arange(cap, device=device)
-        nr_t = torch.tensor(nr, device=device)
-
-        def library():
-            return (torch.div(ar, nr_t, rounding_mode="floor"),
-                    torch.remainder(ar, nr_t))
-        timed[query] = {
-            "n_left": nl, "n_right": nr, "out_capacity": cap,
-            "ms": time_ms(lambda: J.cross_expand(nl, nr, cap, device)),
-            "plain_ms": time_ms(lambda: J._cross_expand_torch(
-                nl, nr, cap, device)),
-            "library_ms": time_ms(library),
-            # the two counts read, two int64 indices per output slot and
-            # the total written
-            "bound_ms": bound_ms(8 + cap * 16 + 8)}
+        timed[query] = k15_timing(device, *max(calls))
     return {"name": "cross_expand", "main_path_checks": checks,
             "shapes": {q: [list(c) for c in calls]
                        for q, calls in shapes.items()},
@@ -3607,9 +3965,15 @@ def oracle_q16(ps, s, p):
 
 
 def _distinct_per_key(keys, vals, n_keys: int):
-    """count(DISTINCT vals) per key (keys in [0, n_keys))."""
-    pairs = np.unique(keys.astype(np.int64) * (1 << 32) + vals)
-    return np.bincount(pairs >> 32, minlength=n_keys)
+    """count(DISTINCT vals) per key (keys in [0, n_keys)): one sort of the
+    (key, val) pairs and the changes along it. Not np.unique, whose method
+    differs between numpy releases: q21's oracle, the one caller, runs it
+    over lineitem's 60 M pairs and was the smoke's slowest on the card's
+    host."""
+    pairs = np.sort(keys.astype(np.int64) * (1 << 32) + vals)
+    first = np.ones(len(pairs), bool)
+    first[1:] = pairs[1:] != pairs[:-1]
+    return np.bincount(pairs[first] >> 32, minlength=n_keys)
 
 
 def oracle_q21(l, o, s, n):
@@ -3940,15 +4304,17 @@ PATH_KERNELS = {
     "q6": ("masked_reduce",),
     "q1": ("sort_key_lanes", "segment_bounds", "segment_reduce"),
     "q3": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
-           "join_probe", "join_expand", "segment_bounds", "segment_reduce"),
+           "join_probe", "join_probe_lower", "join_expand",
+           "segment_bounds", "segment_reduce"),
     "q12": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
-            "join_probe", "join_expand", "segment_bounds", "segment_reduce"),
-    "q4": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
-           "join_probe", "segment_bounds", "slot_aggregate",
-           "segment_reduce"),
-    "q13": ("find_pattern", "compact_scan", "murmur3", "partition_split",
-            "sort_key_lanes", "join_probe", "join_expand_outer",
+            "join_probe", "join_probe_lower", "join_expand",
             "segment_bounds", "segment_reduce"),
+    "q4": ("compact_scan", "murmur3", "partition_split", "sort_key_lanes",
+           "join_probe", "join_probe_lower", "segment_bounds",
+           "slot_aggregate", "segment_reduce"),
+    "q13": ("find_pattern", "compact_scan", "murmur3", "partition_split",
+            "sort_key_lanes", "join_probe", "join_probe_lower",
+            "join_expand_outer", "segment_bounds", "segment_reduce"),
     "q11": ("sort_key_lanes", "join_probe", "join_expand", "cross_expand",
             "compact_scan"),
     "q15": ("compact_scan", "sort_key_lanes", "join_probe", "join_expand",
@@ -4112,11 +4478,23 @@ class _Segments:
         return fn.accumulate(values - self.rank * big) + self.rank * big
 
 
-def window_oracles(o, l) -> tuple:
-    """(expected, orders): each window column's expected values (numpy) as
-    (the name of the row order they are in, the values), and each such row
-    order's permutation of the table's rows. NULLs of the string column are
-    code -1. Prices sum in integer cents, exactly."""
+def merge_window_parts(parts) -> tuple:
+    """(expected, orders) of the windows phase from the parts'
+    (:func:`window_oracles_orders`, :func:`window_oracles_rows`,
+    :func:`window_oracles_range`, independent jobs of :class:`Oracles`):
+    each window column's expected values (numpy) as (the name of the row
+    order they are in, the values), and each such row order's permutation
+    of the table's rows. NULLs of the string column are code -1. Prices sum
+    in integer cents, exactly."""
+    out, orders = {}, {}
+    for part_out, part_orders in parts:
+        out.update(part_out)
+        orders.update(part_orders)
+    return out, orders
+
+
+def window_oracles_orders(o) -> tuple:
+    """W1-W3 over orders (:func:`merge_window_parts`)."""
     out, orders = {}, {}
     ck, od, ok_ = o["o_custkey"], o["o_orderdate"], o["o_orderkey"]
     s = _Segments(ck, od, ok_, stable=False)      # the keys are unique
@@ -4146,6 +4524,13 @@ def window_oracles(o, l) -> tuple:
     out["W3_mn"] = ("o_date", s.running(cents, np.minimum) / 100.0)
     out["W3_mx"] = ("o_date", s.running(cents, np.maximum) / 100.0)
     out["W3_a"] = ("o_date", run / 100.0 / cnt)
+    out["_priorities"] = prio_names
+    return out, orders
+
+
+def window_oracles_rows(l) -> tuple:
+    """W4's ROWS frames over lineitem (:func:`merge_window_parts`)."""
+    out, orders = {}, {}
     sk = l["l_suppkey"]
     # ties (one order's lines of a supplier and a day) keep row order, as
     # the engine's stable sorts do
@@ -4176,6 +4561,14 @@ def window_oracles(o, l) -> tuple:
     suffix = (np.maximum.accumulate(q[::-1] + rev_rank * big) -
               rev_rank * big)[::-1]
     out["W4_mx_on"] = ("l_date", np.maximum(before, suffix))
+    return out, orders
+
+
+def window_oracles_range(l) -> tuple:
+    """W5's RANGE frame and W6's whole partitions over lineitem
+    (:func:`merge_window_parts`)."""
+    out, orders = {}, {}
+    sk = l["l_suppkey"]
     sd = l["l_shipdate"].astype(np.int64)
     # a RANGE frame holds every peer: the order of tied rows is moot
     s = _Segments(sk, sd, stable=False)
@@ -4187,7 +4580,6 @@ def window_oracles(o, l) -> tuple:
     out["W5_rev30"] = ("l_ship", (pc[hi] - pc[lo]) / 100.0)
     per = np.bincount(sk, weights=_cents(l["l_extendedprice"]))
     out["W6_rev"] = (None, per[sk] / 100.0)
-    out["_priorities"] = prio_names
     return out, orders
 
 
@@ -4232,7 +4624,7 @@ def _window_column(name: str, col, n: int, want, priorities,
 def windows_phase(tables, oracle, device) -> dict:
     """W1-W6 through the session, one cold and two hot runs each, every
     run's columns held to the numpy oracles (``oracle``: what
-    :func:`window_oracles` returned); its cold run's kernel launches, its
+    :func:`merge_window_parts` returned); its cold run's kernel launches, its
     peak device bytes and its plan."""
     import warnings
     import torch
@@ -5012,12 +5404,14 @@ class Oracles:
                                          f"threshold, relative)")
             return rows
         # the longest first
-        jobs = {"windows": lambda: window_oracles(o, l),
-                "mesh": lambda: mesh_oracles(data["mesh"]),
-                "nested": lambda: nested_oracles(o, p, l, data["n4"]),
-                "q21": lambda: oracle_q21(l, o, s, n),
-                "q1": lambda: oracle_q1(l),
+        jobs = {"windows_rows": lambda: window_oracles_rows(l),
                 "q9": lambda: oracle_q9(l, o, s, ps, n, p),
+                "windows_range": lambda: window_oracles_range(l),
+                "windows_orders": lambda: window_oracles_orders(o),
+                "mesh": lambda: mesh_oracles(data["mesh"]),
+                "q21": lambda: oracle_q21(l, o, s, n),
+                "nested": lambda: nested_oracles(o, p, l, data["n4"]),
+                "q1": lambda: oracle_q1(l),
                 "q3": lambda: oracle_q3(l, o, c),
                 "q19": lambda: oracle_q19(l, p),
                 "q6": lambda: [(oracle_q6(l),)],
@@ -5057,19 +5451,23 @@ class Oracles:
     def join(self) -> tuple:
         """(every oracle by name, {own_s: thread seconds summed, wall_s:
         from their start to the last one's end, waited_s: how long this
-        call waited})."""
+        call waited, longest_own_s: the five longest by name})."""
         t0 = time.perf_counter()
         try:
             out = {name: f.result() for name, f in self.pending.items()}
         finally:
             self.pool.shutdown()
         waited = time.perf_counter() - t0
+        out["windows"] = merge_window_parts(
+            [out.pop(f"windows_{part}")
+             for part in ("orders", "rows", "range")])
         for name in NONEMPTY_ORACLES:
             if not out[name]:
                 raise AssertionError(f"{name}'s oracle is empty")
+        longest = sorted(self.own_s.items(), key=lambda kv: -kv[1])[:5]
         return out, {"own_s": sum(self.own_s.values()),
                      "wall_s": max(self.ends.values()) - self.t0,
-                     "waited_s": waited}
+                     "waited_s": waited, "longest_own_s": dict(longest)}
 
 
 def main_path(sf: float, data, oracles, device) -> tuple:
@@ -5094,7 +5492,8 @@ def main_path(sf: float, data, oracles, device) -> tuple:
         for name, cols in data.items() if name not in ("n4", "mesh")}
     torch.cuda.reset_peak_memory_stats(device)
     lines, k15_shapes = [], {}
-    with recording(J, "cross_expand") as calls:
+    with recording(J, "cross_expand") as calls, \
+            recording(J, "join_probe", k6_shape) as k6_calls:
         native.reset_counts()
         for name in MAIN_QUERIES:
             start = len(calls)
@@ -5153,19 +5552,33 @@ def main_path(sf: float, data, oracles, device) -> tuple:
         r["phase_s"] = time.perf_counter() - t0
         emit(r)
         phases.append(r)
-    return lines, launches, host_passes, peak, phases, k15_shapes
+    return lines, launches, host_passes, peak, phases, k15_shapes, k6_calls
+
+
+def k6_shape(args, kwargs) -> tuple:
+    """(lanes, build capacity, n_build, probe capacity, n_probe,
+    lower_only) of a join_probe call; a tensor count is copied on the
+    device (no synchronize), read after the counted run."""
+    def count(n):
+        return n.detach().clone() if hasattr(n, "detach") else int(n)
+    build, n_build, probe = args[:3]
+    n_probe = args[4] if len(args) > 4 else kwargs["n_probe"]
+    lower = args[5] if len(args) > 5 else kwargs.get("lower_only", False)
+    return (build.shape[0], build.shape[1], count(n_build), probe.shape[1],
+            count(n_probe), bool(lower))
 
 
 @contextlib.contextmanager
-def recording(module, name: str):
+def recording(module, name: str, keep=lambda args, kwargs: tuple(args[:3])):
     """``module.<name>`` replaced, inside the block, by a pass-through
-    that appends each call's first three positional arguments to the
-    list it yields: the shapes the engine gives a kernel's wrapper."""
+    that appends ``keep(args, kwargs)`` of each call (by default its first
+    three positional arguments) to the list it yields: the shapes the
+    engine gives a kernel's wrapper."""
     real = getattr(module, name)
     calls = []
 
     def record(*args, **kwargs):
-        calls.append(tuple(args[:3]))
+        calls.append(keep(args, kwargs))
         return real(*args, **kwargs)
     setattr(module, name, record)
     try:
@@ -5551,6 +5964,8 @@ REPLACES = {
     "segment_reduce": "spark_rapids_tpu/ops/aggregates.py:95",
     "compact_scan": "spark_rapids_tpu/ops/kernels.py:235",
     "join_probe": "spark_rapids_tpu/ops/joins.py:119",
+    "join_probe_lower": "spark_rapids_tpu/shuffle/partitioning.py:256, "
+                        "spark_rapids_tpu/parallel/mesh.py:506",
     "join_expand": "spark_rapids_tpu/ops/joins.py:158",
     "dense_stats": "spark_rapids_tpu/ops/aggregates.py:382",
     "slot_aggregate": "spark_rapids_tpu/ops/aggregates.py:477",
@@ -5664,6 +6079,7 @@ def main() -> int:
                                              "2^20-row batch"}
         for mode in r.pop("modes", ()):
             results[mode["name"]] = mode
+            emit({"phase": "kernel", **mode})
         results[r["name"]] = r
         emit({"phase": "kernel", **r})
     if args.only:
@@ -5675,8 +6091,8 @@ def main() -> int:
         emit(check(device, rng))
         torch.cuda.synchronize()
 
-    lines, launches, host_passes, peak, phases, k15_shapes = main_path(
-        args.sf, data, oracles, device)
+    lines, launches, host_passes, peak, phases, k15_shapes, k6_calls = \
+        main_path(args.sf, data, oracles, device)
     emit({"phase": "main_summary", "sf": args.sf, "datagen_s": gen_s,
           "oracle_s": oracle_s, "peak_device_bytes": peak,
           "launches": launches,
@@ -5687,6 +6103,16 @@ def main() -> int:
           "host_string_passes": host_passes})
     r = check_k15_main(device, k15_shapes)
     results["cross_expand"].update(r)
+    emit({"phase": "kernel", **r})
+    # K6 keeps q3's shape in the kernels line, its main-path call beside
+    # it; the lower-bound mode's line takes its main-path call (range ids)
+    r = check_k6_main(device, k6_calls)
+    results["join_probe"]["timed_at_main_path"] = \
+        r["timed_at_main_path"]["full"]
+    lower = results["join_probe_lower"]
+    lower["timed_at_q3"] = {k: lower[k] for k in TIMES}
+    lower.update({k: r["timed_at_main_path"]["lower"][k] for k in TIMES},
+                 timed_at_shape="its largest main-path call")
     emit({"phase": "kernel", **r})
     results["build_matched"]["phase_launches"] = \
         phases[-1]["phase_launches"]["build_matched"]

@@ -1,5 +1,5 @@
 // Block and grid scans shared by compact_scan.cu (K5) and join_expand.cu
-// (K7).
+// (K7); block sums for other kernels (K6's totals among them).
 //
 // A grid scan runs in three launches and no atomics, as K3's does: a
 // per-row pass reduces each block of kThreads rows to one total, one block
@@ -22,13 +22,14 @@ inline int num_blocks(long long n) {
   return (int)(b < 1 ? 1 : b);
 }
 
-// Inclusive scan of x over the block (blockDim.x == kThreads). Every thread
-// gets its inclusive prefix; *block_total, when given, gets the block's sum
-// in every thread. Holds static shared memory: two calls in one kernel need
-// a __syncthreads() between them.
-template <typename T>
+// Inclusive scan of x over the block (blockDim.x == Threads, a multiple of
+// 32 up to 1024). Every thread gets its inclusive prefix; *block_total,
+// when given, gets the block's sum in every thread. Holds static shared
+// memory: two calls in one kernel need a __syncthreads() between them.
+template <typename T, int Threads = kThreads>
 __device__ __forceinline__ T block_inclusive_scan(T x, T* block_total) {
-  __shared__ T warp_tot[kThreads / 32];
+  constexpr int kWarps = Threads / 32;
+  __shared__ T warp_tot[kWarps];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   for (int off = 1; off < 32; off <<= 1) {
@@ -38,23 +39,23 @@ __device__ __forceinline__ T block_inclusive_scan(T x, T* block_total) {
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    T t = lane < kThreads / 32 ? warp_tot[lane] : T(0);
+    T t = lane < kWarps ? warp_tot[lane] : T(0);
     for (int off = 1; off < 32; off <<= 1) {
       const T y = __shfl_up_sync(0xffffffffu, t, off);
       if (lane >= off) t += y;
     }
-    if (lane < kThreads / 32) warp_tot[lane] = t;  // inclusive warp totals
+    if (lane < kWarps) warp_tot[lane] = t;  // inclusive warp totals
   }
   __syncthreads();
-  if (block_total != nullptr) *block_total = warp_tot[kThreads / 32 - 1];
+  if (block_total != nullptr) *block_total = warp_tot[kWarps - 1];
   return x + (warp > 0 ? warp_tot[warp - 1] : T(0));
 }
 
 // Sum of x over the block, in every thread.
-template <typename T>
+template <typename T, int Threads = kThreads>
 __device__ __forceinline__ T block_sum(T x) {
   T total;
-  block_inclusive_scan<T>(x, &total);
+  block_inclusive_scan<T, Threads>(x, &total);
   return total;
 }
 

@@ -22,11 +22,13 @@ cache and the compile seconds. A compile or launch failure raises.
 The only process state is the loaded libraries, modules and generated
 functions, the generated kernels' stats, ``LAUNCHES``: one plain integer
 per kernel (K7's outer mode, K13's locate mode, K1's fold and K21's
-offset mode have their own), bumped by its wrapper where it launches, so a run can show which
-kernels the main path went through; and ``HOST_STRING_PASSES``: one
-integer per string expression that the reference itself runs on the host
-(the general LIKE, replace, locate from a position past 1), bumped once
-for each device -> host copy of a column it makes.
+offset mode have their own; K6's lower-bound mode bumps ``join_probe``
+and ``join_probe_lower``), bumped by its wrapper where it launches, so a
+run can show which kernels the main path went through; and
+``HOST_STRING_PASSES``: one integer per string expression that the
+reference itself runs on the host (the general LIKE, replace, locate from
+a position past 1), bumped once for each device -> host copy of a column
+it makes.
 """
 
 from __future__ import annotations
@@ -39,13 +41,16 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel with its own launch counter; a mode of a kernel that is
 # counted apart names its library in LIBRARY_OF
 KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
-           "segment_reduce", "compact_scan", "join_probe", "join_expand",
+           "segment_reduce", "compact_scan", "join_probe",
+           "join_probe_lower", "join_expand",
            "join_expand_outer", "dense_stats", "slot_aggregate",
            "singleword_rank", "murmur3", "partition_split", "find_pattern",
            "build_matched", "cross_expand", "string_map", "string_slice",
@@ -54,7 +59,8 @@ KERNELS = ("masked_reduce", "sort_key_lanes", "segment_bounds",
            "segmented_scan", "frame_bounds", "frame_aggregate",
            "explode_expand", "split_parts", "map_lookup", "map_build",
            "exchange_bucket", "exchange_flatten")
-LIBRARY_OF = {"join_expand_outer": "join_expand",
+LIBRARY_OF = {"join_probe_lower": "join_probe",
+              "join_expand_outer": "join_expand",
               "find_pattern_locate": "find_pattern",
               "masked_reduce_fold": "masked_reduce",
               "window_offset": "window_rank"}
@@ -125,9 +131,9 @@ _SIGNATURES = {
         "compact_scan_scratch_bytes": (_L, [_L]),
     },
     "join_probe": {
-        "join_probe": (_I, [_P, _L, _P, _P, _L, _I,
-                            ctypes.POINTER(ctypes.c_void_p), _I, _P, _P, _P,
-                            _P, _P]),
+        "join_probe": (_I, [_P, _L, _L, _I, _P, _L, _P, _L, _I,
+                            ctypes.POINTER(ctypes.c_void_p), _I, _P, _L, _P,
+                            _P, _P, _I, _P]),
     },
     "join_expand": {
         "join_expand": (_I, [_P, _P, _L, _I, _P, _P, _L, _P, _P, _P, _P,
@@ -166,7 +172,8 @@ _SIGNATURES = {
         "build_matched_scratch_bytes": (_L, [_L]),
     },
     "cross_expand": {
-        "cross_expand": (_I, [_P, _P, _L, _P, _P, _P, _P]),
+        "cross_expand": (_I, [_L, _L, _L, ctypes.c_ulonglong, _P, _P, _P,
+                              _P]),
     },
     "string_map": {
         "string_map": (_I, [_P, _P, _P, _L, _I, _I, _P, _P, _P]),
@@ -316,8 +323,13 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` (a torch.device or its
+    name), as a raw cudaStream_t: the calls that build no
+    ``torch.cuda.Stream``, a microsecond or two less host time a launch."""
+    index = getattr(device, "index", None)
+    if index is None:
+        index = _device_index(torch.device(device))
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def bump(name: str) -> None:
@@ -502,7 +514,6 @@ def compile_generated(source: str, entry: str) -> bytes:
 
 
 def _device_index(device) -> int:
-    import torch
     return device.index if device.index is not None else \
         torch.cuda.current_device()
 
@@ -513,7 +524,6 @@ def generated_kernel(source: str, entry: str, device) -> ctypes.c_void_p:
     fn = _GEN_FUNCS.get(key)
     if fn is not None:
         return fn
-    import torch
     torch.cuda.init()
     cubin = compile_generated(source, entry)
     cuda = _cuda()

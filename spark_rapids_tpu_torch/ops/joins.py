@@ -8,9 +8,11 @@ As in the reference, every equality join is sort-merge:
   1. sort the BUILD side by its keys: K2 lanes (kernels.sort_key_lanes)
      plus a stable ``torch.sort`` per lane (kernels.lanes_order);
   2. K6 :func:`join_probe` (csrc/join_probe.cu, twin
-     :func:`_join_probe_torch`) binary-searches every STREAM row's lanes in
-     the sorted build lanes: the range [lo, lo + count) of equal build rows,
-     and the total pair count;
+     :func:`_join_probe_torch`) searches every STREAM row's lanes in the
+     sorted build lanes: the range [lo, lo + count) of equal build rows,
+     and the total pair count. Its lower-bound mode (``lower_only``, counter
+     ``join_probe_lower``) gives the range partition ids of the exchange
+     and the mesh sort;
   3. K7 :func:`_expand_indices` (csrc/join_expand.cu, twin
      :func:`_expand_indices_torch`) turns the ranges into one (stream row,
      build row) pair per output slot; torch indexing gathers the columns.
@@ -24,7 +26,9 @@ As in the reference, every equality join is sort-merge:
 
 A cross join pairs every left row with every right row: K15
 :func:`cross_expand` (csrc/cross_expand.cu, twin
-:func:`_cross_expand_torch`) writes each output slot's (left, right) row.
+:func:`_cross_expand_torch`) writes each output slot's (left, right) row,
+dividing by the right side's row count with the multiplier and shift of
+:func:`_fast_divisor`.
 
 Both sides' keys are encoded by K2 with the same descriptors (string pairs
 widened to the pair's width first), so lane equality is SQL key equality:
@@ -51,6 +55,8 @@ from . import kernels as K
 
 _MAX_LANES = 16
 _MAX_PROBE_KEYS = 8
+_MAX_CAPACITY = 1 << 31     # K6's indices are 32-bit
+_SLOTS_32 = 1 << 32         # K15 divides by multiply-high below this
 
 
 def _widen_string(col: Column, width: int) -> Column:
@@ -91,7 +97,9 @@ def _normalize_words(cols: Sequence[Column]
 
 class BuildSide(NamedTuple):
     order: torch.Tensor    # int64[build_cap] sort permutation of the build
-    lanes: torch.Tensor    # int64[L, build_cap] build lanes in sorted order
+    # int64[L, build_cap] build lanes in sorted order: the transposed view
+    # of row-major rows, so K6 reads a row's lanes from one sector
+    lanes: torch.Tensor
     n_build: object        # live build rows (int or 0-d tensor)
 
 
@@ -101,7 +109,8 @@ def sort_build(build_keys: Sequence[Column], n_build) -> BuildSide:
     lanes = K.sort_key_lanes([K.SortKey(c) for c in build_keys], n_build,
                              cap)
     order = K.lanes_order(lanes)
-    return BuildSide(order, lanes[:, order].contiguous(), n_build)
+    rows = lanes.t().index_select(0, order).contiguous()
+    return BuildSide(order, rows.t(), n_build)
 
 
 class JoinMatch(NamedTuple):
@@ -146,49 +155,94 @@ def join_match(build_keys: Sequence[Column], n_build,
 # ---------------------------------------------------------------------------
 
 def join_probe(build_lanes: torch.Tensor, n_build, probe_lanes: torch.Tensor,
-               probe_valid: Sequence[torch.Tensor], n_probe
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               probe_valid: Sequence[torch.Tensor], n_probe,
+               lower_only: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                          Optional[torch.Tensor]]:
     """(lo int32[pcap], count int32[pcap], totals int64[2]): for each probe
     row the lower bound of its lanes in the first ``n_build`` sorted build
     lanes and the number of equal build rows; the count is 0 for rows at or
     past ``n_probe`` and rows with a NULL key. ``totals`` holds the sum of
     count and the number of live probe rows (< ``n_probe``) whose count is
-    0."""
+    0. ``lower_only`` (range partition ids) gives (lo, None, None) and
+    skips the upper bound and the totals. A host-int count goes to the
+    kernel by value (no copy, no synchronize), a 0-d tensor by pointer."""
     device = probe_lanes.device
     if device.type == "cpu":
         return _join_probe_torch(build_lanes, n_build, probe_lanes,
-                                 probe_valid, n_probe)
+                                 probe_valid, n_probe, lower_only)
     if device.type != "cuda":
         raise RuntimeError(f"join_probe: unsupported device {device}")
+    # the checks read attributes only: at the main path's batch sizes this
+    # wrapper's host time is a large part of the call's
     nl, pcap = probe_lanes.shape
-    for t in (build_lanes, probe_lanes):
-        if t.device != device or t.dtype != torch.int64 or \
-                not t.is_contiguous():
-            raise ValueError("lanes must be contiguous int64 on the device")
-    if build_lanes.shape[0] != nl or nl > _MAX_LANES:
-        raise ValueError(f"lane counts {build_lanes.shape[0]} vs {nl} "
-                         f"(at most {_MAX_LANES})")
-    if len(probe_valid) > _MAX_PROBE_KEYS or any(
-            v.dtype != torch.bool or v.shape != (pcap,) or
-            v.device != device or not v.is_contiguous()
-            for v in probe_valid):
-        raise ValueError("probe validity must be contiguous bool[pcap]")
-    lo = torch.empty(pcap, dtype=torch.int32, device=device)
-    count = torch.empty(pcap, dtype=torch.int32, device=device)
-    totals = torch.empty(2, dtype=torch.int64, device=device)
-    valid_ptrs = (ctypes.c_void_p * max(1, len(probe_valid)))(
-        *[v.data_ptr() for v in probe_valid])
-    nb_t = K._count_tensor(n_build, device)
-    np_t = K._count_tensor(n_probe, device)
-    lib = native.library("join_probe")
-    rc = lib.join_probe(build_lanes.data_ptr(), build_lanes.shape[1],
-                        nb_t.data_ptr(), probe_lanes.data_ptr(), pcap, nl,
-                        valid_ptrs, len(probe_valid), np_t.data_ptr(),
-                        lo.data_ptr(), count.data_ptr(), totals.data_ptr(),
-                        native.stream_ptr(device))
+    bl, bcap = build_lanes.shape
+    if build_lanes.dtype != torch.int64 or \
+            probe_lanes.dtype != torch.int64 or \
+            build_lanes.device != device or not probe_lanes.is_contiguous():
+        raise ValueError("lanes must be int64 on the device, the probe's "
+                         "contiguous")
+    if bl != nl or nl > _MAX_LANES:
+        raise ValueError(f"lane counts {bl} vs {nl} (at most {_MAX_LANES})")
+    # the build lane-major ([L, bcap] contiguous) or row-major (its
+    # transpose contiguous, as sort_build gives it)
+    stride = build_lanes.stride()
+    if stride[1] == 1 and (stride[0] == bcap or nl == 1):
+        lane_stride, row_stride = bcap, 1
+    elif stride == (1, nl):
+        lane_stride, row_stride = 1, nl
+    else:
+        raise ValueError("build lanes must be lane-major or row-major")
+    if bcap >= _MAX_CAPACITY or pcap >= _MAX_CAPACITY:
+        raise ValueError(f"join_probe takes capacities below 2^31, not "
+                         f"{bcap} and {pcap}")
+    if probe_valid:
+        if len(probe_valid) > _MAX_PROBE_KEYS or any(
+                v.dtype != torch.bool or v.shape != (pcap,) or
+                v.device != device or not v.is_contiguous()
+                for v in probe_valid):
+            raise ValueError("probe validity must be contiguous bool[pcap]")
+        valid_ptrs = (ctypes.c_void_p * len(probe_valid))(
+            *[v.data_ptr() for v in probe_valid])
+    else:
+        valid_ptrs = None
+    nb_t, nb_val = _count_arg(n_build, device, bcap, "n_build")
+    np_t, np_val = _count_arg(n_probe, device, _MAX_CAPACITY - 1, "n_probe")
+    if lower_only:
+        lo = torch.empty(pcap, dtype=torch.int32, device=device)
+        count = totals = None
+        count_ptr = totals_ptr = None
+    else:
+        lo, count = torch.empty((2, pcap), dtype=torch.int32,
+                                device=device).unbind(0)
+        totals = torch.empty(2, dtype=torch.int64, device=device)
+        count_ptr, totals_ptr = count.data_ptr(), totals.data_ptr()
+    rc = native.library("join_probe").join_probe(
+        build_lanes.data_ptr(), bcap, lane_stride, row_stride, _ptr(nb_t),
+        nb_val, probe_lanes.data_ptr(), pcap, nl, valid_ptrs,
+        len(probe_valid), _ptr(np_t), np_val, lo.data_ptr(), count_ptr,
+        totals_ptr, int(lower_only), native.stream_ptr(device))
     native.check(rc, "join_probe")
     native.bump("join_probe")
+    if lower_only:
+        native.bump("join_probe_lower")
     return lo, count, totals
+
+
+def _count_arg(n, device, most: int, what: str):
+    """(int32[1] tensor or None, value): a tensor count as an int32 on the
+    device, read there (the caller holds the tensor until the launch); a
+    host int by value, checked against [0, ``most``]."""
+    if isinstance(n, torch.Tensor):
+        return K._count_tensor(n, device), 0
+    n = int(n)
+    if not 0 <= n <= most:
+        raise ValueError(f"{what} {n} outside [0, {most}]")
+    return None, n
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _lex_cmp(a_lanes: List[torch.Tensor], b_lanes: List[torch.Tensor]):
@@ -226,10 +280,12 @@ def _search_bounds(build_lanes: torch.Tensor, n_build,
 
 
 def _join_probe_torch(build_lanes, n_build, probe_lanes, probe_valid,
-                      n_probe):
-    """Plain PyTorch twin of K6."""
+                      n_probe, lower_only: bool = False):
+    """Plain PyTorch twin of K6 (and of its lower-bound mode)."""
     pcap = probe_lanes.shape[1]
     lo = _search_bounds(build_lanes, n_build, probe_lanes, "left")
+    if lower_only:
+        return lo.to(torch.int32), None, None
     hi = _search_bounds(build_lanes, n_build, probe_lanes, "right")
     live = torch.arange(pcap, device=probe_lanes.device) < n_probe
     ok = live
@@ -370,26 +426,59 @@ def _build_matched_torch(lo, count, n_build, build_capacity: int):
 def cross_expand(n_left: int, n_right: int, out_capacity: int, device
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(left_idx int64, right_idx int64, total int64 0-d) over
-    ``out_capacity`` slots: slot i < n_left * n_right pairs left row
-    i // n_right with right row i % n_right; the other slots hold 0. The
-    counts are host ints; the product stays int64."""
-    device = torch.device(device)
+    ``out_capacity`` slots (even: the engine's capacities are powers of
+    two): slot i < n_left * n_right pairs left row i // n_right with right
+    row i % n_right; the other slots hold 0. The counts are host ints,
+    passed to the kernel by value; the product stays int64. The outputs
+    are views of one allocation."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    n_left, n_right = int(n_left), int(n_right)
+    if n_left < 0 or n_right < 0 or out_capacity < 2 or out_capacity % 2:
+        raise ValueError(f"cross_expand: {n_left} x {n_right} rows into "
+                         f"{out_capacity} slots (an even count)")
     if device.type == "cpu":
         return _cross_expand_torch(n_left, n_right, out_capacity, device)
     if device.type != "cuda":
         raise RuntimeError(f"cross_expand: unsupported device {device}")
-    li = torch.empty(out_capacity, dtype=torch.int64, device=device)
-    ri = torch.empty(out_capacity, dtype=torch.int64, device=device)
-    total = torch.empty(1, dtype=torch.int64, device=device)
-    counts = torch.tensor([n_left, n_right], dtype=torch.int32,
-                          device=device)         # one host -> device copy
+    # at the main path's sizes this wrapper's host time is most of the
+    # call's: one allocation, the launch, then one split, which the host
+    # makes while the card writes
+    buf = torch.empty(2 * out_capacity + 1, dtype=torch.int64,
+                      device=device)
+    # every main-path call has n_right == 1, which the kernel copies; the
+    # multiply-high serves a right side of more rows
+    divisor = 0
+    if n_right > 1 and out_capacity < _SLOTS_32 and n_right < _SLOTS_32:
+        magic, shift, add = _fast_divisor(n_right)
+        divisor = magic | shift << 32 | int(add) << 40
+    ptr = buf.data_ptr()
     rc = native.library("cross_expand").cross_expand(
-        counts.data_ptr(), counts.data_ptr() + 4, out_capacity,
-        li.data_ptr(), ri.data_ptr(), total.data_ptr(),
-        native.stream_ptr(device))
+        n_left, n_right, out_capacity, divisor, ptr, ptr + 8 * out_capacity,
+        ptr + 16 * out_capacity, native.stream_ptr(device))
     native.check(rc, "cross_expand")
     native.bump("cross_expand")
-    return li, ri, total.reshape(())
+    li, ri, total = buf.split_with_sizes([out_capacity, out_capacity, 1])
+    return li, ri, total.squeeze_(0)      # in place: no fourth tensor
+
+
+def _fast_divisor(d: int) -> Tuple[int, int, bool]:
+    """(magic, shift, add) with which K15 divides any 32-bit n by ``d``
+    (1 <= d < 2^32) without a division: h = (n * magic) >> 32, then
+    n // d = h >> shift, or (h + ((n - h) >> 1)) >> shift when ``add``.
+    The round-up multiplier ceil(2^(32+l) / d), 2^l < d <= 2^(l+1), is
+    exact for every 32-bit n when its error m d - 2^(32+l) is at most 2^l;
+    otherwise the 33-bit ceil(2^(33+l) / d) less 2^32 and the add-and-halve
+    step are. d == 1 is (0, 0, False): the kernel copies."""
+    if not 1 <= d < _SLOTS_32:
+        raise ValueError(f"divisor {d} outside [1, 2^32)")
+    if d == 1:
+        return 0, 0, False
+    shift = (d - 1).bit_length() - 1
+    magic = -(-(1 << (32 + shift)) // d)
+    if magic * d - (1 << (32 + shift)) <= 1 << shift:
+        return magic, shift, False
+    return -(-(1 << (33 + shift)) // d) - (1 << 32), shift, True
 
 
 def _cross_expand_torch(n_left, n_right, out_capacity: int, device):

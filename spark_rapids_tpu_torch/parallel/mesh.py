@@ -771,8 +771,8 @@ def distributed_sort_fn(mesh: Mesh, col_dtypes: Sequence[dt.DType],
             # 3. partition id = bounds strictly below the row
             b_lanes = K.sort_key_lanes(b_keys, n - 1, bcap)
             r_lanes = K.sort_key_lanes(sort_keys(cols), cap, cap)
-            lo, _count, _totals = join_k.join_probe(b_lanes, n - 1, r_lanes,
-                                                    [], cap)
+            lo, _, _ = join_k.join_probe(b_lanes, n - 1, r_lanes, [], cap,
+                                         lower_only=True)
             pid = torch.clamp(lo, 0, n - 1).to(torch.int32)
         # 4. route rows to their range owner
         live = _live(cap, local_n, device)

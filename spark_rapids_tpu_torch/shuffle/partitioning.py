@@ -248,7 +248,7 @@ class RangePartitioner(TpuPartitioner):
             [K.SortKey(c, a, f) for c, a, f in zip(rkeys, asc, nf)],
             cap, cap)
         # lower bound of each row among the sorted bounds = the number of
-        # bounds strictly below it
-        lo, _count, _total = join_k.join_probe(b_lanes, bounds.num_rows,
-                                               r_lanes, [], cap)
+        # bounds strictly below it (K6's lower-bound mode)
+        lo, _, _ = join_k.join_probe(b_lanes, bounds.num_rows, r_lanes, [],
+                                     cap, lower_only=True)
         return torch.clamp(lo, 0, self.num_partitions - 1)
